@@ -1,0 +1,221 @@
+"""RaCFormer detector assembly, eval path (port of
+`racformer_tpu/model/racformer.py`).
+
+ResNet-50 + FPN over all cameras of a frame, CustomFPN -> radar-assisted LSS
+view transform, the radar pillar branch, and the polar-query decoder head.
+`encode_frame` / `decode_window` split the network so the streaming
+evaluator keeps a ring buffer of per-frame features and encodes only the
+newest frame per step; `forward` is the offline path that encodes every
+frame of the window.
+
+Dtypes follow the JAX package: the image trunk computes in `trunk_dtype`
+(bf16) from f32 parameters, the image pyramid and BEV value maps the decoder
+gathers from are stored in bf16 (`trunk_dtype` / `gather_dtype`), the radar
+branch and the head run in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..nn.decoder import CLS_PRIOR_BIAS
+from ..nn.fpn import FPN, CustomFPN
+from ..nn.head import RaCFormerHead
+from ..nn.layers import BatchNorm
+from ..nn.pillar_encoder import PillarFeatureNet, radar_bev_conv
+from ..nn.resnet import ResNet50
+from ..nn.view_transformer import LSSViewTransformer
+from ..ops.bilinear import sampler_ready
+from ..ops.pillars import PillarGrid
+
+IMG_MEAN = (123.675, 116.280, 103.530)  # RGB
+IMG_STD = (58.395, 57.120, 57.375)
+
+
+def preprocess_images(imgs: torch.Tensor, bgr_to_rgb: bool = True) -> torch.Tensor:
+    """Normalize raw 0-255 images [..., H, W, 3] (BGR by default) to f32."""
+    x = imgs.float()
+    if bgr_to_rgb:
+        x = x.flip(-1)
+    mean = torch.tensor(IMG_MEAN, device=x.device)
+    std = torch.tensor(IMG_STD, device=x.device)
+    return (x - mean) / std
+
+
+class RaCFormer(nn.Module):
+    def __init__(self, num_cams: int = 6, num_frames: int = 8,
+                 embed_dims: int = 256, num_query: int = 900,
+                 num_clusters: int = 6, num_levels: int = 4,
+                 num_groups: int = 4, num_classes: int = 10,
+                 decoder: Optional[dict[str, Any]] = None,
+                 image_hw=(256, 704),
+                 pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+                 depth_bins: int = 96, bev_size=(128, 128),
+                 num_decoder_layers: int = 6,
+                 trunk_dtype: torch.dtype = torch.bfloat16):
+        """Arguments as the JAX `RaCFormer`'s eval fields. `decoder` is the
+        config file's decoder block (num_layers, d_region_list, num_points,
+        ...), merged over the defaults; its `gather_dtype` sets the BEV value
+        maps' storage dtype."""
+        super().__init__()
+        self.num_cams, self.num_frames = num_cams, num_frames
+        self.embed_dims, self.num_levels, self.num_groups = embed_dims, num_levels, num_groups
+        self.image_hw = tuple(image_hw)
+        self.bev_size = tuple(bev_size)
+        self.depth_bins = depth_bins
+        self.trunk_dtype = trunk_dtype
+        C = embed_dims
+        self.img_backbone = ResNet50(dtype=trunk_dtype)
+        self.img_neck = FPN((256, 512, 1024, 2048), C)
+        self.img_lss_neck = CustomFPN((1024, 2048), C)
+        voxel = ((pc_range[3] - pc_range[0]) / bev_size[1],
+                 (pc_range[4] - pc_range[1]) / bev_size[0],
+                 pc_range[5] - pc_range[2])
+        self.img_lss_view_transformer = LSSViewTransformer(
+            input_size=image_hw, depth_bins=depth_bins, in_channels=C,
+            out_channels=C, grid_lower=tuple(pc_range[0:3]),
+            grid_interval=voxel, grid_size=(bev_size[1], bev_size[0], 1),
+            dtype=trunk_dtype)
+        self.radar_voxel_encoder = PillarFeatureNet(PillarGrid(
+            pc_range=tuple(pc_range), voxel_size=voxel, nx=bev_size[1],
+            ny=bev_size[0]))
+        self.radar_bev_conv = radar_bev_conv(64, C)
+        decoder_cfg = dict(num_layers=num_decoder_layers, embed_dims=C,
+                           num_frames=num_frames, num_levels=num_levels,
+                           num_classes=num_classes, pc_range=tuple(pc_range),
+                           bev_spatial_shape=tuple(bev_size),
+                           image_hw=tuple(image_hw))
+        decoder_cfg.update(decoder or {})
+        self.pts_bbox_head = RaCFormerHead(num_classes, num_query, num_clusters,
+                                           C, pc_range, decoder_cfg)
+
+    def _trunk(self, imgs):
+        """[S, N, H, W, 3] -> (level-concatenated sampler-ready pyramid
+        [S, G, N, rcat, Wmax, 2c], lss_feat [S, N, H/16, W/16, C] f32).
+
+        Level l of camera n starts at row n * rcat + roffs[l]
+        (`nn.img_sampling.concat_geometry`); narrower levels are zero-padded
+        on the right to the level-0 width."""
+        S, N, H, W, _ = imgs.shape
+        c2, c3, c4, c5 = self.img_backbone(imgs.reshape(S * N, H, W, 3))
+        G = self.num_groups
+        c = self.embed_dims // G
+        levels = []
+        for l, f in enumerate(self.img_neck([c2, c3, c4, c5])):
+            h, w = f.shape[1:3]
+            if (h, w) != (H // (4 << l), W // (4 << l)):
+                raise ValueError(f"level {l} is {h}x{w} for a {H}x{W} image")
+            f = f.reshape(S, N, h, w, G, c).permute(0, 4, 1, 2, 3, 5)
+            levels.append(sampler_ready(f))
+        wmax = max(f.shape[-2] for f in levels)
+        feat_cat = torch.cat(
+            [F.pad(f, (0, 0, 0, wmax - f.shape[-2])) for f in levels], dim=-3)
+        lss_feat = self.img_lss_neck([c4, c5])
+        hf, wf = lss_feat.shape[1:3]
+        return feat_cat, lss_feat.float().reshape(S, N, hf, wf, self.embed_dims)
+
+    def _bev_branches(self, lss_feat, radar_points, radar_mask, radar_depth,
+                      radar_rcs, img2lidar):
+        S, N = lss_feat.shape[:2]
+        mlp_input = img2lidar[..., :3, :3].reshape(S, N, 9)
+        lss_bev, depth_logits = self.img_lss_view_transformer(
+            lss_feat, radar_depth, radar_rcs, img2lidar, mlp_input)
+        radar_bev = self.radar_bev_conv(
+            self.radar_voxel_encoder(radar_points, radar_mask))
+        return lss_bev, radar_bev, depth_logits
+
+    @torch.no_grad()
+    def encode_frame(self, imgs, radar_points, radar_mask, radar_depth,
+                     radar_rcs, img2lidar):
+        """One (batched) frame. imgs: [S, N, H, W, 3] normalized;
+        radar_points: [S, P, 7]; radar_mask: [S, P]; radar_depth / radar_rcs:
+        [S, N, H, W]; img2lidar: [S, N, 4, 4].
+
+        Returns (feat_cat [S, G, N, rcat, Wmax, 2c], lss_bev [S, ny, nx, C],
+                 radar_bev [S, ny, nx, C], depth_logits [S, N, hf, wf, D])."""
+        feat_cat, lss_feat = self._trunk(imgs)
+        lss_bev, radar_bev, depth_logits = self._bev_branches(
+            lss_feat, radar_points, radar_mask, radar_depth, radar_rcs,
+            img2lidar)
+        return feat_cat, lss_bev, radar_bev, depth_logits
+
+    @torch.no_grad()
+    def decode_window(self, feat_cat, lss_bev, radar_bev, lidar2img, time_diff):
+        """Head over a T-frame window. feat_cat: [B, T, G, N, rcat, Wmax, 2c];
+        lss_bev / radar_bev: [B, T, ny, nx, C]; lidar2img: [B, T, N, 4, 4];
+        time_diff: [B, T]."""
+        return self.pts_bbox_head(feat_cat, lss_bev.float(), radar_bev.float(),
+                                  lidar2img.float(), time_diff.float())
+
+    @torch.no_grad()
+    def forward(self, imgs, radar_points, radar_mask, radar_depth, radar_rcs,
+                lidar2img, img2lidar, time_diff):
+        """Offline eval forward: every frame of the window is encoded.
+        imgs: [B, T, N, H, W, 3] normalized. Returns the head's outputs plus
+        frame 0's 'depth_logits' [B, N, hf, wf, D]."""
+        B, T, N, H, W, _ = imgs.shape
+        ny, nx = self.bev_size
+        feat_cat, lss_bev, radar_bev, depth_logits = self.encode_frame(
+            imgs.reshape(B * T, N, H, W, 3),
+            radar_points.reshape(B * T, *radar_points.shape[2:]),
+            radar_mask.reshape(B * T, -1),
+            radar_depth.reshape(B * T, N, H, W),
+            radar_rcs.reshape(B * T, N, H, W),
+            img2lidar.reshape(B * T, N, 4, 4))
+        outs = self.decode_window(
+            feat_cat.reshape(B, T, *feat_cat.shape[1:]),
+            lss_bev.reshape(B, T, ny, nx, -1),
+            radar_bev.reshape(B, T, ny, nx, -1), lidar2img, time_diff)
+        outs["depth_logits"] = depth_logits.reshape(
+            B, T, *depth_logits.shape[1:])[:, 0]
+        return outs
+
+
+@torch.no_grad()
+def random_init_(model: RaCFormer, generator: torch.Generator) -> RaCFormer:
+    """Seeded random weights with no zero kernels, for smoke runs.
+
+    Every weight is drawn (LeCun-normal for convs and linears, N(0, 1) for
+    embeddings, 1 + noise for norm scales); BatchNorm running statistics are
+    random too. The reference zero-initializes the sampling-offset and
+    mixing-generator kernels, which would make the samplers ignore the query
+    features; here they get small random kernels instead. The reg branch's
+    output layer is scaled down so the refined boxes stay near the ring
+    initialization, which keeps the image sample points in view."""
+
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=generator).to(t.device) * std)
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            fan_in = mod.weight[0].numel()
+            scale = 1.0
+            if name.endswith(("sampling_offset", "reg_branch.4")):
+                scale = 0.1
+            normal(mod.weight, scale / fan_in ** 0.5)
+            if mod.bias is not None:
+                normal(mod.bias, 0.1)
+        elif isinstance(mod, nn.Embedding):
+            normal(mod.weight, 1.0)
+        elif isinstance(mod, nn.LayerNorm):
+            normal(mod.weight, 0.1)
+            mod.weight.add_(1.0)
+            normal(mod.bias, 0.1)
+        elif isinstance(mod, BatchNorm):
+            normal(mod.weight, 0.1)
+            mod.weight.add_(1.0)
+            normal(mod.bias, 0.1)
+            normal(mod.running_mean, 0.1)
+            mod.running_var.copy_(0.5 + torch.rand(
+                mod.running_var.shape, generator=generator).to(mod.running_var.device))
+    sa = model.pts_bbox_head.transformer.decoder.decoder_layer.self_attn
+    normal(sa.attention.attn.in_proj_weight, 1.0 / sa.attention.attn.in_proj_weight.shape[1] ** 0.5)
+    normal(sa.attention.attn.in_proj_bias, 0.1)
+    layer = model.pts_bbox_head.transformer.decoder.decoder_layer
+    layer.cls_branch[-1].bias.fill_(CLS_PRIOR_BIAS)
+    model.pts_bbox_head.reset_query_bbox(generator)
+    return model

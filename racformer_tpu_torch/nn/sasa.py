@@ -1,0 +1,64 @@
+"""Scale-Adaptive Self-Attention (port of `racformer_tpu/nn/sasa.py`):
+multi-head self-attention over the queries with the additive bias
+`-||c_i - c_j|| * tau_h`, tau a learned per-head scale from the query
+feature, and a residual. The attention is written out (two batched matmuls
+and a softmax); the projection weights are stored as the reference's
+`nn.MultiheadAttention` stores them (`attention.attn.in_proj_weight`, ...).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.bbox_codec import decode_bbox, theta_d_to_xy
+from .layers import Linear
+
+
+class _AttentionWeights(nn.Module):
+    def __init__(self, embed_dims: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims))
+        self.out_proj = Linear(embed_dims, embed_dims)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+
+class _AttentionShell(nn.Module):
+    """Holds `attn`, as mmcv's MultiheadAttention wrapper does."""
+
+    def __init__(self, embed_dims: int):
+        super().__init__()
+        self.attn = _AttentionWeights(embed_dims)
+
+
+class ScaleAdaptiveSelfAttention(nn.Module):
+    def __init__(self, embed_dims: int = 256, num_heads: int = 8,
+                 pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)):
+        super().__init__()
+        self.num_heads = num_heads
+        self.pc_range = tuple(pc_range)
+        self.gen_tau = Linear(embed_dims, num_heads)
+        self.attention = _AttentionShell(embed_dims)
+
+    def forward(self, query_bbox: torch.Tensor, query_feat: torch.Tensor):
+        """query_bbox: [B, Q, 10] polar queries; query_feat: [B, Q, C]."""
+        B, Q, C = query_feat.shape
+        M = self.num_heads
+        c = C // M
+        centers = decode_bbox(theta_d_to_xy(query_bbox), self.pc_range)[..., :2]
+        dist = -torch.linalg.norm(centers[:, :, None] - centers[:, None], dim=-1)
+        tau = self.gen_tau(query_feat)  # [B, Q, M]
+        bias = dist[:, None] * tau.permute(0, 2, 1)[..., None]  # [B, M, Q, Q]
+
+        attn = self.attention.attn
+        qkv = F.linear(query_feat, attn.in_proj_weight, attn.in_proj_bias)
+        q, k, v = (t.reshape(B, Q, M, c).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(c)
+        weights = torch.softmax(logits.float() + bias, dim=-1).to(v.dtype)
+        out = torch.matmul(weights, v).transpose(1, 2).reshape(B, Q, C)
+        return query_feat + attn.out_proj(out)
