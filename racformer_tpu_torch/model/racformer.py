@@ -1,12 +1,15 @@
-"""RaCFormer detector assembly, eval path (port of
-`racformer_tpu/model/racformer.py`).
+"""RaCFormer detector assembly (port of `racformer_tpu/model/racformer.py`).
 
 ResNet-50 + FPN over all cameras of a frame, CustomFPN -> radar-assisted LSS
 view transform, the radar pillar branch, and the polar-query decoder head.
 `encode_frame` / `decode_window` split the network so the streaming
 evaluator keeps a ring buffer of per-frame features and encodes only the
-newest frame per step; `forward` is the offline path that encodes every
-frame of the window.
+newest frame per step (both without gradients); `forward` is the offline
+path that encodes every frame of the window: without gradients in eval mode,
+and in train mode (`model.train()`) the training forward of the JAX
+`train_mode=True` model: gradients through the trunk for all T frames, the
+history frames' BEV maps detached, BatchNorm statistics over all T frames,
+query denoising from the ground truth.
 
 Dtypes follow the JAX package: the image trunk computes in `trunk_dtype`
 (bf16) from f32 parameters, the image pyramid and BEV value maps the decoder
@@ -20,7 +23,6 @@ from typing import Any, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..nn.decoder import CLS_PRIOR_BIAS
 from ..nn.fpn import FPN, CustomFPN
@@ -29,7 +31,7 @@ from ..nn.layers import BatchNorm
 from ..nn.pillar_encoder import PillarFeatureNet, radar_bev_conv
 from ..nn.resnet import ResNet50
 from ..nn.view_transformer import LSSViewTransformer
-from ..ops.bilinear import sampler_ready
+from ..ops.msmv import level_concat
 from ..ops.pillars import PillarGrid
 
 IMG_MEAN = (123.675, 116.280, 103.530)  # RGB
@@ -56,8 +58,9 @@ class RaCFormer(nn.Module):
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
                  depth_bins: int = 96, bev_size=(128, 128),
                  num_decoder_layers: int = 6,
-                 trunk_dtype: torch.dtype = torch.bfloat16):
-        """Arguments as the JAX `RaCFormer`'s eval fields. `decoder` is the
+                 trunk_dtype: torch.dtype = torch.bfloat16,
+                 query_denoising: bool = True, max_gt: int = 64):
+        """Arguments as the JAX `RaCFormer`'s fields. `decoder` is the
         config file's decoder block (num_layers, d_region_list, num_points,
         ...), merged over the defaults; its `gather_dtype` sets the BEV value
         maps' storage dtype."""
@@ -90,8 +93,10 @@ class RaCFormer(nn.Module):
                            bev_spatial_shape=tuple(bev_size),
                            image_hw=tuple(image_hw))
         decoder_cfg.update(decoder or {})
-        self.pts_bbox_head = RaCFormerHead(num_classes, num_query, num_clusters,
-                                           C, pc_range, decoder_cfg)
+        self.num_classes, self.max_gt = num_classes, max_gt
+        self.pts_bbox_head = RaCFormerHead(
+            num_classes, num_query, num_clusters, C, pc_range, decoder_cfg,
+            query_denoising=query_denoising, max_gt=max_gt)
 
     def _trunk(self, imgs):
         """[S, N, H, W, 3] -> (level-concatenated sampler-ready pyramid
@@ -109,11 +114,8 @@ class RaCFormer(nn.Module):
             h, w = f.shape[1:3]
             if (h, w) != (H // (4 << l), W // (4 << l)):
                 raise ValueError(f"level {l} is {h}x{w} for a {H}x{W} image")
-            f = f.reshape(S, N, h, w, G, c).permute(0, 4, 1, 2, 3, 5)
-            levels.append(sampler_ready(f))
-        wmax = max(f.shape[-2] for f in levels)
-        feat_cat = torch.cat(
-            [F.pad(f, (0, 0, 0, wmax - f.shape[-2])) for f in levels], dim=-3)
+            levels.append(f.reshape(S, N, h, w, G, c).permute(0, 4, 1, 2, 3, 5))
+        feat_cat = level_concat(levels)
         lss_feat = self.img_lss_neck([c4, c5])
         hf, wf = lss_feat.shape[1:3]
         return feat_cat, lss_feat.float().reshape(S, N, hf, wf, self.embed_dims)
@@ -128,6 +130,19 @@ class RaCFormer(nn.Module):
             self.radar_voxel_encoder(radar_points, radar_mask))
         return lss_bev, radar_bev, depth_logits
 
+    def _encode(self, imgs, radar_points, radar_mask, radar_depth, radar_rcs,
+                img2lidar):
+        feat_cat, lss_feat = self._trunk(imgs)
+        lss_bev, radar_bev, depth_logits = self._bev_branches(
+            lss_feat, radar_points, radar_mask, radar_depth, radar_rcs,
+            img2lidar)
+        return feat_cat, lss_bev, radar_bev, depth_logits
+
+    def _decode(self, feat_cat, lss_bev, radar_bev, lidar2img, time_diff,
+                **gt):
+        return self.pts_bbox_head(feat_cat, lss_bev.float(), radar_bev.float(),
+                                  lidar2img.float(), time_diff.float(), **gt)
+
     @torch.no_grad()
     def encode_frame(self, imgs, radar_points, radar_mask, radar_depth,
                      radar_rcs, img2lidar):
@@ -137,39 +152,57 @@ class RaCFormer(nn.Module):
 
         Returns (feat_cat [S, G, N, rcat, Wmax, 2c], lss_bev [S, ny, nx, C],
                  radar_bev [S, ny, nx, C], depth_logits [S, N, hf, wf, D])."""
-        feat_cat, lss_feat = self._trunk(imgs)
-        lss_bev, radar_bev, depth_logits = self._bev_branches(
-            lss_feat, radar_points, radar_mask, radar_depth, radar_rcs,
-            img2lidar)
-        return feat_cat, lss_bev, radar_bev, depth_logits
+        return self._encode(imgs, radar_points, radar_mask, radar_depth,
+                            radar_rcs, img2lidar)
 
     @torch.no_grad()
     def decode_window(self, feat_cat, lss_bev, radar_bev, lidar2img, time_diff):
         """Head over a T-frame window. feat_cat: [B, T, G, N, rcat, Wmax, 2c];
         lss_bev / radar_bev: [B, T, ny, nx, C]; lidar2img: [B, T, N, 4, 4];
         time_diff: [B, T]."""
-        return self.pts_bbox_head(feat_cat, lss_bev.float(), radar_bev.float(),
-                                  lidar2img.float(), time_diff.float())
+        return self._decode(feat_cat, lss_bev, radar_bev, lidar2img, time_diff)
 
-    @torch.no_grad()
     def forward(self, imgs, radar_points, radar_mask, radar_depth, radar_rcs,
-                lidar2img, img2lidar, time_diff):
-        """Offline eval forward: every frame of the window is encoded.
+                lidar2img, img2lidar, time_diff, gt_bboxes=None,
+                gt_labels=None, gt_mask=None, dn=None):
+        """Offline forward: every frame of the window is encoded.
         imgs: [B, T, N, H, W, 3] normalized. Returns the head's outputs plus
-        frame 0's 'depth_logits' [B, N, hf, wf, D]."""
+        frame 0's 'depth_logits' [B, N, hf, wf, D].
+
+        Eval mode runs without gradients. Train mode takes the ground truth
+        (gt_bboxes [B, G, 9], gt_labels [B, G], gt_mask [B, G]) and the
+        query-denoising draws `dn` (`nn.head.dn_draws`)."""
+        if not self.training:
+            with torch.no_grad():
+                return self._window(imgs, radar_points, radar_mask,
+                                    radar_depth, radar_rcs, lidar2img,
+                                    img2lidar, time_diff, {})
+        gt = dict(gt_bboxes=gt_bboxes, gt_labels=gt_labels, gt_mask=gt_mask,
+                  dn=dn)
+        return self._window(imgs, radar_points, radar_mask, radar_depth,
+                            radar_rcs, lidar2img, img2lidar, time_diff, gt)
+
+    def _window(self, imgs, radar_points, radar_mask, radar_depth, radar_rcs,
+                lidar2img, img2lidar, time_diff, gt):
         B, T, N, H, W, _ = imgs.shape
         ny, nx = self.bev_size
-        feat_cat, lss_bev, radar_bev, depth_logits = self.encode_frame(
+        feat_cat, lss_bev, radar_bev, depth_logits = self._encode(
             imgs.reshape(B * T, N, H, W, 3),
             radar_points.reshape(B * T, *radar_points.shape[2:]),
             radar_mask.reshape(B * T, -1),
             radar_depth.reshape(B * T, N, H, W),
             radar_rcs.reshape(B * T, N, H, W),
             img2lidar.reshape(B * T, N, 4, 4))
-        outs = self.decode_window(
-            feat_cat.reshape(B, T, *feat_cat.shape[1:]),
-            lss_bev.reshape(B, T, ny, nx, -1),
-            radar_bev.reshape(B, T, ny, nx, -1), lidar2img, time_diff)
+        lss_bev = lss_bev.reshape(B, T, ny, nx, -1)
+        radar_bev = radar_bev.reshape(B, T, ny, nx, -1)
+        if self.training:
+            # history frames give the BEV branches no gradient (the
+            # reference runs them in eval mode under no_grad)
+            lss_bev = torch.cat([lss_bev[:, :1], lss_bev[:, 1:].detach()], 1)
+            radar_bev = torch.cat([radar_bev[:, :1], radar_bev[:, 1:].detach()],
+                                  1)
+        outs = self._decode(feat_cat.reshape(B, T, *feat_cat.shape[1:]),
+                            lss_bev, radar_bev, lidar2img, time_diff, **gt)
         outs["depth_logits"] = depth_logits.reshape(
             B, T, *depth_logits.shape[1:])[:, 0]
         return outs

@@ -18,7 +18,7 @@ from ..ops.bbox_codec import theta_d_pair_to_xy, theta_d_to_xy, xy_to_theta_d
 from ..ops.bilinear import sampler_ready
 from ..ops.deform_attn import deform_attn_single_level
 from ..ops.sampling import make_sample_points
-from .layers import Linear
+from .layers import Dropout, Linear
 from .positional import LearnedPositionalEncoding2D
 
 
@@ -34,7 +34,8 @@ def radial_offsets(query_feat, ray_offset_dense, d_region, depth_num):
 
 class BEVCrossFrameAttention(nn.Module):
     """Deformable attention over the T-frame BEV queue, batch-major
-    (b * T + t) slab order throughout."""
+    (b * T + t) slab order throughout. Eval mode sums `fold` points per
+    kernel output (K1); train mode samples each point (`PatchSample`)."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 4,
                  num_frames: int = 8, fold: int = 4, spatial_shape=(128, 128)):
@@ -44,6 +45,7 @@ class BEVCrossFrameAttention(nn.Module):
         self.value_proj = Linear(embed_dims, embed_dims)
         self.bev_queue_weight = Linear(embed_dims, num_frames)
         self.output_proj = Linear(embed_dims, embed_dims)
+        self.dropout = Dropout(0.1)
 
     def forward(self, query, value, loc_x, loc_y, weights):
         """query: [B, Q, C]; value: [B*T, M, H+3, W+4, 2c] sampler-ready;
@@ -56,11 +58,11 @@ class BEVCrossFrameAttention(nn.Module):
 
         out = deform_attn_single_level(value, slabs(loc_x), slabs(loc_y),
                                        slabs(weights), self.spatial_shape,
-                                       self.fold)
+                                       0 if self.training else self.fold)
         out = out.reshape(B, T, Q, C)
         qw = torch.softmax(self.bev_queue_weight(query).float(), dim=-1)
         out = torch.einsum("btqc,bqt->bqc", out.float(), qw).to(query.dtype)
-        return self.output_proj(out) + query
+        return self.dropout(self.output_proj(out)) + query
 
 
 class BEVSampling(nn.Module):

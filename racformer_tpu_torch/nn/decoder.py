@@ -8,6 +8,12 @@ adaptive mixing, 3-way fusion, FFN, the cls / reg branches and the polar box
 refinement with the per-iteration shrinking `d_region`. Work that is the
 same in every iteration (radar ConvGRU temporal encoding, BEV positional
 encodings and value projections) runs once, before the loop.
+
+In train mode each iteration runs under `torch.utils.checkpoint`: its
+activations are recomputed in the backward, as the JAX package's full
+`nn.remat` of the scanned layer does. The iteration's dropout masks come
+from a seed drawn before the checkpointed call, so the recompute draws the
+same masks (`torch.utils.checkpoint` restores only the global RNG state).
 """
 
 from __future__ import annotations
@@ -16,28 +22,33 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.bbox_codec import inverse_sigmoid, theta_d_to_xy
 from .adaptive_mixing import AdaptiveMixing
 from .bev_sampling import BEVSampling
 from .conv_gru import RadarBEVTemporalEncoder
 from .img_sampling import ImageRadialSampling
-from .layers import Linear, layer_norm
+from .layers import (Dropout, DropoutRNG, Linear, current_dropout_rng,
+                     dropout_rng, layer_norm)
 from .sasa import ScaleAdaptiveSelfAttention
 
 CLS_PRIOR_BIAS = -4.59511985013459  # bias_init_with_prob(0.01)
 
 
 class FFN(nn.Module):
-    """mmcv FFN with residual; keys `layers.0.0` and `layers.1`."""
+    """mmcv FFN with residual and dropout 0.1 after each linear; keys
+    `layers.0.0` and `layers.1`."""
 
     def __init__(self, dims: int, hidden: int = 512):
         super().__init__()
         self.layers = nn.Sequential(
             nn.Sequential(Linear(dims, hidden), nn.ReLU()), Linear(hidden, dims))
+        self.dropout = Dropout(0.1)
 
     def forward(self, x):
-        return x + self.layers(x)
+        h = self.dropout(self.layers[0](x))
+        return x + self.dropout(self.layers[1](h))
 
 
 class RaCFormerDecoderLayer(nn.Module):
@@ -88,11 +99,12 @@ class RaCFormerDecoderLayer(nn.Module):
         return torch.cat([theta, dz_new, bbox_delta[..., 3:]], dim=-1)
 
     def forward(self, query_bbox, query_feat, feat_cat, lss_value, radar_value,
-                lidar2img, time_diff, d_region):
+                lidar2img, time_diff, d_region, attn_mask=None):
         """Returns (cls_score [B, Q, cls], polar bbox_pred [B, Q, 10],
         query_feat [B, Q, C])."""
         query_feat = query_feat + self.position_encoder(query_bbox[..., :3])
-        query_feat = self.norm1(self.self_attn(query_bbox, query_feat))
+        query_feat = self.norm1(self.self_attn(query_bbox, query_feat,
+                                               attn_mask))
         q_radar = self.norm_radar_bev(self.sampling_radar_bev(
             query_bbox, query_feat, radar_value, time_diff, d_region))
         q_lss = self.norm_lss_bev(self.sampling_lss_bev(
@@ -123,11 +135,20 @@ class RaCFormerDecoder(nn.Module):
         self.num_layers = num_layers
         self.d_region_list = tuple(d_region_list)
         self.gather_dtype = gather_dtype
+        self.remat = True  # checkpoint each iteration in train mode
         self.decoder_layer = RaCFormerDecoderLayer(**layer_cfg)
 
+    def _iteration(self, seed, *args):
+        """One decoder iteration with its dropout masks drawn from `seed`
+        (None: dropout off)."""
+        rng = None if seed is None else DropoutRNG(seed, args[0].device)
+        with dropout_rng(rng):
+            return self.decoder_layer(*args)
+
     def forward(self, query_bbox, query_feat, feat_cat, lss_bev, radar_bev,
-                lidar2img, time_diff):
-        """lss_bev / radar_bev: [B, T, H, W, C] raw BEV maps. Returns
+                lidar2img, time_diff, attn_mask=None):
+        """lss_bev / radar_bev: [B, T, H, W, C] raw BEV maps; attn_mask:
+        optional [Q, Q] bool self-attention mask (True = blocked). Returns
         (cls_scores [Lyr, B, Q, cls], bbox_preds [Lyr, B, Q, 10] with
         normalized xy centers)."""
         layer = self.decoder_layer
@@ -135,11 +156,18 @@ class RaCFormerDecoder(nn.Module):
         radar_value = layer.sampling_radar_bev.project_value(
             radar_bev, self.gather_dtype)
         lss_value = layer.sampling_lss_bev.project_value(lss_bev, self.gather_dtype)
+        rng = current_dropout_rng() if self.training else None
+        remat = self.training and self.remat and torch.is_grad_enabled()
         cls_all, bbox_all = [], []
         for i in range(self.num_layers):
-            cls_score, bbox_pred, query_feat = layer(
-                query_bbox, query_feat, feat_cat, lss_value, radar_value,
-                lidar2img, time_diff, self.d_region_list[i])
+            args = (None if rng is None else rng.spawn(), query_bbox,
+                    query_feat, feat_cat, lss_value, radar_value, lidar2img,
+                    time_diff, self.d_region_list[i], attn_mask)
+            if remat:
+                cls_score, bbox_pred, query_feat = checkpoint(
+                    self._iteration, *args, use_reentrant=False)
+            else:
+                cls_score, bbox_pred, query_feat = self._iteration(*args)
             cls_all.append(cls_score)
             bbox_all.append(theta_d_to_xy(bbox_pred))
             query_bbox = bbox_pred.detach()

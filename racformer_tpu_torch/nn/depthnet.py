@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Conv2d, Mlp, SELayer
+from .layers import BatchNorm, Conv2d, Dropout, Mlp, SELayer
 
 
 class BasicBlock(nn.Module):
@@ -61,12 +61,13 @@ class ASPP(nn.Module):
         self.global_avg_pool = _GlobalPool(ch)
         self.conv1 = Conv2d(ch * 5, ch, 1, bias=False)
         self.bn1 = BatchNorm(ch)
+        self.dropout = Dropout(0.5)
 
     def forward(self, x):
         a = [self.aspp1(x), self.aspp2(x), self.aspp3(x), self.aspp4(x)]
         gap = self.global_avg_pool(x).expand_as(a[3])
         out = torch.cat(a + [gap], dim=-1)
-        return F.relu(self.bn1(self.conv1(out)))
+        return self.dropout(F.relu(self.bn1(self.conv1(out))))
 
 
 class DepthNet(nn.Module):

@@ -71,4 +71,4 @@ class ImageRadialSampling(nn.Module):
         w = torch.softmax(w, dim=-1)
         return sample_image_features(
             sample_points, feat_cat, w, lidar2img, image_hw[0], image_hw[1],
-            concat_geometry(image_hw, L))
+            concat_geometry(image_hw, L), fold=not self.training)

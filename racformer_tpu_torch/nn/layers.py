@@ -7,12 +7,20 @@ Conventions, as in the JAX package:
   * parameters are float32; a layer computes in its input's dtype (bf16 in
     the image trunk, f32 in the head), casting its weights per call;
   * normalization layers hold the reference checkpoint's tensors (weight,
-    bias, running_mean, running_var, num_batches_tracked) and apply the
-    eval-mode affine map folded into one multiply-add.
+    bias, running_mean, running_var, num_batches_tracked). In eval mode they
+    apply the affine map folded into one multiply-add; in train mode
+    `BatchNorm` normalizes with batch statistics and updates its running
+    ones with flax's semantics, `FrozenBatchNorm` never does;
+  * dropout draws its masks from the generator of the enclosing
+    `dropout_rng` block; outside one (and in eval mode) it is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -59,11 +67,22 @@ class Conv1x1Linear(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis, folded into x * s + t."""
+    """BatchNorm over the last axis.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    Eval mode: the running statistics, folded into x * s + t. Train mode,
+    with flax's `nn.BatchNorm` semantics (which the JAX package uses, not
+    torch's): statistics over every axis but the last, in f32; the variance
+    is the biased one, as E[x^2] - E[x]^2 clipped at 0 (`fast_variance`,
+    flax's default) or as E[(x - E[x])^2]; the running statistics move by
+    `momentum` towards the batch's, both the BIASED variance (torch's
+    `F.batch_norm` would store the unbiased one). `momentum` follows torch's
+    convention: flax `momentum=0.9` is 0.1 here."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, fast_variance: bool = True):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
+        self.fast_variance = fast_variance
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -72,9 +91,87 @@ class BatchNorm(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x):
+        if not self.training:
+            s = self.weight / torch.sqrt(self.running_var + self.eps)
+            t = self.bias - self.running_mean * s
+            return x * s.to(x.dtype) + t.to(x.dtype)
+        dims = tuple(range(x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(dims)
+        if self.fast_variance:
+            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        else:
+            var = ((xf - mean) ** 2).mean(dims)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.num_batches_tracked += 1
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
+
+
+class FrozenBatchNorm(BatchNorm):
+    """BatchNorm that always uses its running statistics (the backbone's
+    `norm_eval=True`); weight and bias still get gradients."""
+
+    def forward(self, x):
         s = self.weight / torch.sqrt(self.running_var + self.eps)
         t = self.bias - self.running_mean * s
         return x * s.to(x.dtype) + t.to(x.dtype)
+
+
+class DropoutRNG:
+    """Seeds for dropout masks, made on the host: every `generator()` call
+    returns a fresh `torch.Generator` on `device` seeded from (seed, count),
+    so a region re-run from the same seed (an activation checkpoint's
+    recompute) draws the same masks. `spawn()` gives such a seed."""
+
+    def __init__(self, seed: int, device):
+        self.seed, self.device, self.count = int(seed), torch.device(device), 0
+
+    def spawn(self) -> int:
+        self.count += 1
+        state = np.random.SeedSequence([self.seed, self.count]).generate_state(2)
+        return int(state[0]) << 31 | int(state[1]) >> 1
+
+    def generator(self) -> torch.Generator:
+        return torch.Generator(self.device).manual_seed(self.spawn())
+
+
+_DROPOUT: list = [None]
+
+
+@contextlib.contextmanager
+def dropout_rng(rng: Optional[DropoutRNG]):
+    """Dropout layers in train mode draw their masks from `rng` inside the
+    block; None turns them off."""
+    prev, _DROPOUT[0] = _DROPOUT[0], rng
+    try:
+        yield
+    finally:
+        _DROPOUT[0] = prev
+
+
+def current_dropout_rng() -> Optional[DropoutRNG]:
+    return _DROPOUT[0]
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: keep with probability 1 - p and scale by 1/(1-p),
+    in train mode inside a `dropout_rng` block; otherwise the identity."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        rng = _DROPOUT[0]
+        if not self.training or rng is None or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=rng.generator(),
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:

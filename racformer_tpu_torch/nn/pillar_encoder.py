@@ -19,7 +19,10 @@ class PFNLayer(nn.Module):
     def __init__(self, cin: int = 13, cout: int = 64):
         super().__init__()
         self.linear = Linear(cin, cout, bias=False)
-        self.norm = BatchNorm(cout, eps=1e-3)  # mmdet3d PFN norm cfg
+        # mmdet3d PFN norm cfg (eps 1e-3, momentum 0.01); the JAX package's
+        # BatchNorm here computes the two-pass variance
+        self.norm = BatchNorm(cout, eps=1e-3, momentum=0.01,
+                              fast_variance=False)
 
 
 class PillarFeatureNet(nn.Module):
@@ -38,13 +41,15 @@ class PillarFeatureNet(nn.Module):
         points = points.float().clone()
         points[..., 2] = 0.0
         pfn = self.pfn_layers[0]
-        out = []
-        for b in range(points.shape[0]):
-            feats, ids, valid = augment_pillar_points(
-                points[b], mask[b], self.grid, self.max_pts_per_pillar)
-            x = F.relu(pfn.norm(pfn.linear(feats)))
-            out.append(pillar_bev_features(x, ids, valid, self.grid))
-        return torch.stack(out)
+        aug = [augment_pillar_points(points[b], mask[b], self.grid,
+                                     self.max_pts_per_pillar)
+               for b in range(points.shape[0])]
+        # one BatchNorm over the whole batch: in train mode its statistics
+        # cover every sample's points (padding included), as in the JAX
+        # package
+        x = F.relu(pfn.norm(pfn.linear(torch.stack([a[0] for a in aug]))))
+        return torch.stack([pillar_bev_features(x[b], ids, valid, self.grid)
+                            for b, (_, ids, valid) in enumerate(aug)])
 
 
 def radar_bev_conv(feat_channels: int = 64, out_channels: int = 256):

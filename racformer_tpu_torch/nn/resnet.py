@@ -1,6 +1,6 @@
 """ResNet-50 image backbone (port of `racformer_tpu/nn/resnet.py`):
-torch-style bottlenecks with the stride on the 3x3 conv, BatchNorm always in
-eval mode, outputs C2..C5. Parameter names are mmdet's (`layer1.0.conv1`,
+torch-style bottlenecks with the stride on the 3x3 conv, BatchNorm frozen
+(running statistics in train mode too), outputs C2..C5. Parameter names are mmdet's (`layer1.0.conv1`,
 `layer1.0.downsample.0`, ...)."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Conv2d
+from .layers import Conv2d, FrozenBatchNorm
 
 
 class Bottleneck(nn.Module):
@@ -17,14 +17,14 @@ class Bottleneck(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.conv1 = Conv2d(cin, planes, 1, bias=False)
-        self.bn1 = BatchNorm(planes)
+        self.bn1 = FrozenBatchNorm(planes)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, bias=False)
-        self.bn2 = BatchNorm(planes)
+        self.bn2 = FrozenBatchNorm(planes)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm(planes * 4)
+        self.bn3 = FrozenBatchNorm(planes * 4)
         self.downsample = nn.Sequential(
             Conv2d(cin, planes * 4, 1, stride=stride, bias=False),
-            BatchNorm(planes * 4)) if downsample else None
+            FrozenBatchNorm(planes * 4)) if downsample else None
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -40,7 +40,7 @@ class ResNet50(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.conv1 = Conv2d(3, 64, 7, stride=2, bias=False)
-        self.bn1 = BatchNorm(64)
+        self.bn1 = FrozenBatchNorm(64)
         cin, planes = 64, 64
         for s, n in enumerate(stage_blocks):
             blocks = []

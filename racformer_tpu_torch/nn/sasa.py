@@ -1,7 +1,8 @@
 """Scale-Adaptive Self-Attention (port of `racformer_tpu/nn/sasa.py`):
 multi-head self-attention over the queries with the additive bias
 `-||c_i - c_j|| * tau_h`, tau a learned per-head scale from the query
-feature, and a residual. The attention is written out (two batched matmuls
+feature, the query-denoising group mask (True = blocked) as -inf, dropout
+(0.1) on the attention weights and the output, and a residual. The attention is written out (two batched matmuls
 and a softmax); the projection weights are stored as the reference's
 `nn.MultiheadAttention` stores them (`attention.attn.in_proj_weight`, ...).
 """
@@ -15,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.bbox_codec import decode_bbox, theta_d_to_xy
-from .layers import Linear
+from .layers import Dropout, Linear
 
 
 class _AttentionWeights(nn.Module):
@@ -43,16 +44,23 @@ class ScaleAdaptiveSelfAttention(nn.Module):
         self.pc_range = tuple(pc_range)
         self.gen_tau = Linear(embed_dims, num_heads)
         self.attention = _AttentionShell(embed_dims)
+        self.dropout = Dropout(0.1)
 
-    def forward(self, query_bbox: torch.Tensor, query_feat: torch.Tensor):
-        """query_bbox: [B, Q, 10] polar queries; query_feat: [B, Q, C]."""
+    def forward(self, query_bbox: torch.Tensor, query_feat: torch.Tensor,
+                attn_mask=None):
+        """query_bbox: [B, Q, 10] polar queries; query_feat: [B, Q, C];
+        attn_mask: optional [Q, Q] bool, True = blocked."""
         B, Q, C = query_feat.shape
         M = self.num_heads
         c = C // M
-        centers = decode_bbox(theta_d_to_xy(query_bbox), self.pc_range)[..., :2]
+        # the distance bias takes no gradient (as in the reference)
+        centers = decode_bbox(theta_d_to_xy(query_bbox.detach()),
+                              self.pc_range)[..., :2]
         dist = -torch.linalg.norm(centers[:, :, None] - centers[:, None], dim=-1)
         tau = self.gen_tau(query_feat)  # [B, Q, M]
         bias = dist[:, None] * tau.permute(0, 2, 1)[..., None]  # [B, M, Q, Q]
+        if attn_mask is not None:
+            bias = bias.masked_fill(attn_mask, float("-inf"))
 
         attn = self.attention.attn
         qkv = F.linear(query_feat, attn.in_proj_weight, attn.in_proj_bias)
@@ -60,5 +68,6 @@ class ScaleAdaptiveSelfAttention(nn.Module):
                    for t in qkv.chunk(3, dim=-1))
         logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(c)
         weights = torch.softmax(logits.float() + bias, dim=-1).to(v.dtype)
+        weights = self.dropout(weights)
         out = torch.matmul(weights, v).transpose(1, 2).reshape(B, Q, C)
-        return query_feat + attn.out_proj(out)
+        return query_feat + self.dropout(attn.out_proj(out))

@@ -1,5 +1,7 @@
-"""Sampler-ready feature maps (port of `racformer_tpu/ops/bilinear.py`
-`PAD`, `pad_for_sampling` and `fuse_rows`).
+"""Sampler-ready feature maps and the training path's bilinear sample
+(port of `racformer_tpu/ops/bilinear.py`: `PAD`, `pad_for_sampling`,
+`fuse_rows`, the coordinate handling of `bilinear_sample_views_nhwc` and the
+custom VJP `_patch_sample_pallas`).
 
 A sampler-ready map is zero-bordered by `PAD` on both spatial axes and
 y-fused: row h of the fused map holds rows h and h+1 of the bordered map in
@@ -14,6 +16,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import gather_kernel, scatter_kernel
 
 PAD = 2  # zero border; sampling coordinates are clamped to [-PAD, W]
 
@@ -33,3 +37,57 @@ def sampler_ready(feat: torch.Tensor) -> torch.Tensor:
     """[..., H, W, C] -> zero-bordered y-fused [..., H + 2*PAD - 1,
     W + 2*PAD, 2C]."""
     return fuse_rows(pad_for_sampling(feat))
+
+
+def corner_coords(x_pix, y_pix, H, W, dtype):
+    """Top-left corner and lerp weights of pixel coordinates on an (H, W)
+    map: floor, clamp to [-PAD, W] / [-PAD, H] (far-outside points land in
+    the zero border), shift by PAD. wx / wy are rounded to `dtype` (the map
+    dtype, as the JAX per-level path rounds them) and returned as float32,
+    so their gradients are rounded to `dtype` on the way back too.
+
+    Returns (x0p, y0p) int32 and (wx, wy) float32, each x_pix's shape."""
+    x0 = torch.floor(x_pix)
+    y0 = torch.floor(y_pix)
+    wx = (x_pix - x0).to(dtype).float()
+    wy = (y_pix - y0).to(dtype).float()
+    x0p = x0.clamp(-PAD, W).to(torch.int32) + PAD
+    y0p = y0.clamp(-PAD, H).to(torch.int32) + PAD
+    return x0p, y0p, wx, wy
+
+
+class PatchSample(torch.autograd.Function):
+    """Bilinear sample of a sampler-ready map with hand-written kernels both
+    ways, the contract of the JAX custom VJP `_patch_sample_pallas`:
+    forward K2 (`gather_kernel.patch_gather`), backward K3
+    (`scatter_kernel.patch_scatter`) for the map and K4
+    (`gather_kernel.patch_corner_grads`) for wx and wy. The integer inputs
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, fused, row, x0p, wx, wy):
+        ctx.save_for_backward(fused, row, x0p, wx, wy)
+        return gather_kernel.patch_gather(fused, row, x0p, wx, wy)
+
+    @staticmethod
+    def backward(ctx, g):
+        fused, row, x0p, wx, wy = ctx.saved_tensors
+        g = g.to(fused.dtype).contiguous()
+        d_fused = d_wx = d_wy = None
+        if ctx.needs_input_grad[0]:
+            d_fused = scatter_kernel.patch_scatter(
+                g, row, x0p, wx, wy, fused.shape).to(fused.dtype)
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            d_wx, d_wy = gather_kernel.patch_corner_grads(
+                fused, g, row, x0p, wx, wy)
+        return d_fused, None, None, d_wx, d_wy
+
+
+def patch_sample(fused, row, x0p, wx, wy):
+    """fused [S, R, Wp, 2C]; row / x0p int [S, K]; wx / wy float [S, K]
+    (see `ops.gather_kernel` for the contract). Returns [S, K, C] in the map
+    dtype, differentiable in fused, wx and wy."""
+    c = lambda t, dt: t.to(dt).contiguous()
+    return PatchSample.apply(fused.contiguous(), c(row, torch.int32),
+                             c(x0p, torch.int32), c(wx, torch.float32),
+                             c(wy, torch.float32))

@@ -1,6 +1,6 @@
-"""Build and load the port's CUDA kernels: `nvcc` compiles sources from
+"""Build and load the port's CUDA kernels: `nvcc` compiles each source of
 `racformer_tpu_torch/csrc/` into a shared library with a plain C interface,
-which `ctypes` loads.
+which `ctypes` loads (`KERNELS` lists them with their entry points).
 
 The library goes to `build/racformer_tpu_torch/` in the repository root and
 is named by a hash of its sources and flags, so an edited source rebuilds
@@ -16,12 +16,28 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "racformer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_VP, _CI, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# library name -> (source in csrc/, C entry point, its argument types); each
+# library is one source, so `build_all` runs one nvcc per kernel at once
+KERNELS = {
+    "gather_fold": ("gather_fold.cu", "racformer_gather_fold",
+                    [_CI] + [_VP] * 7 + [_CI, _I64, _CI, _CI, _CI, _CI, _VP]),
+    "patch_gather": ("patch_gather.cu", "racformer_patch_gather",
+                     [_CI] + [_VP] * 6 + [_CI, _I64, _CI, _CI, _CI, _VP]),
+    "patch_scatter": ("patch_scatter.cu", "racformer_patch_scatter",
+                      [_CI] + [_VP] * 6 + [_CI, _I64, _CI, _CI, _CI, _VP]),
+    "patch_corner_grads": ("patch_corner_grads.cu",
+                           "racformer_patch_corner_grads",
+                           [_CI] + [_VP] * 8 + [_CI, _I64, _CI, _CI, _CI, _VP]),
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc output (ptxas register/spill report)
@@ -64,3 +80,22 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     _loaded[name] = ctypes.CDLL(str(lib_path))
     return _loaded[name]
+
+
+def function(name: str):
+    """The C entry point of kernel library `name` (a key of `KERNELS`),
+    built and loaded at first use, with its argument types set."""
+    source, symbol, argtypes = KERNELS[name]
+    fn = getattr(load(name, (source,)), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def build_all() -> None:
+    """Build (or load) every kernel library now, one nvcc per source, all
+    started together."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for _ in pool.map(function, KERNELS):
+            pass

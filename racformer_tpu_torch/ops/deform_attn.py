@@ -1,43 +1,49 @@
 """Single-level multi-head deformable attention sampling over a BEV map
-(port of the fold path of `racformer_tpu/ops/deform_attn.py`).
+(port of `racformer_tpu/ops/deform_attn.py`: the fold path and the per-point
+path the training step takes).
 
 Semantics of mmcv's `ms_deform_attn` with one level: sampling grid
 `loc * 2 - 1` fed to `grid_sample(align_corners=False, padding_mode='zeros')`,
 i.e. pixel coordinates `x_pix = x * W - 0.5`, output the attention-weighted
-sum over points per head. The fold gather sums `fold_points` consecutive
-points in the kernel; the remaining `P // fold_points` partial sums are
-added here in f32.
+sum over points per head. The eval path's fold gather (K1) sums
+`fold_points` consecutive points in the kernel and the remaining
+`P // fold_points` partial sums are added here in f32; the training path
+(`fold_points=0`) samples every point with `PatchSample` (K2 forward, K3 / K4
+backward) and sums the weighted points here, in the map dtype.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bilinear import PAD
+from .bilinear import corner_coords, patch_sample
 from .gather_kernel import patch_sample_fold
 
 
-def bev_fold_inputs(x_norm, y_norm, weights, true_hw, rows_per_head):
-    """Per-point fold-gather inputs (row, x0p, wx, wy, wl), each
-    [S, Q*M*P], for `deform_attn_single_level`'s arguments; head m's map
-    starts at row m * rows_per_head."""
+def bev_points(x_norm, y_norm, true_hw, rows_per_head, wdtype):
+    """Per-point (row, x0p, wx, wy), each [S, Q*M*P], of the head-major map
+    (head m's map starts at row m * rows_per_head); wx / wy rounded to
+    `wdtype`."""
     S, Q, M, P = x_norm.shape
     H, W = true_hw
-    x_pix = x_norm * W - 0.5
-    y_pix = y_norm * H - 0.5
-    x0 = torch.floor(x_pix)
-    y0 = torch.floor(y_pix)
-    wx = (x_pix - x0).float()
-    wy = (y_pix - y0).float()
-    x0p = x0.clamp(-PAD, W).to(torch.int32) + PAD
-    y0p = y0.clamp(-PAD, H).to(torch.int32) + PAD
+    x0p, y0p, wx, wy = corner_coords(x_norm * W - 0.5, y_norm * H - 0.5, H, W,
+                                     wdtype)
     head = torch.arange(M, dtype=torch.int32, device=x_norm.device)
     row = head[None, None, :, None] * rows_per_head + y0p
 
     def flat(t):  # [S, Q, M, P] -> contiguous [S, Q*M*P]
         return t.reshape(S, -1).contiguous()
 
-    return flat(row), flat(x0p), flat(wx), flat(wy), flat(weights.float())
+    return flat(row), flat(x0p), flat(wx), flat(wy)
+
+
+def bev_fold_inputs(x_norm, y_norm, weights, true_hw, rows_per_head):
+    """Per-point fold-gather inputs (row, x0p, wx, wy, wl), each
+    [S, Q*M*P], for `deform_attn_single_level`'s arguments (f32 lerp
+    weights, as the JAX fold path has them)."""
+    S = x_norm.shape[0]
+    return (*bev_points(x_norm, y_norm, true_hw, rows_per_head, torch.float32),
+            weights.float().reshape(S, -1).contiguous())
 
 
 def deform_attn_single_level(
@@ -51,11 +57,18 @@ def deform_attn_single_level(
     """value: [S, M, H + 2*PAD - 1, W + 2*PAD, 2c] head-major sampler-ready
     map (`nn.bev_sampling.BEVSampling.project_value`); x_norm / y_norm:
     [S, Q, M, P] in [0, 1]; weights: [S, Q, M, P]; true_hw: the map's real
-    (H, W).
+    (H, W); fold_points: points summed in the kernel (eval), or 0 for the
+    differentiable per-point path of training.
 
     Returns [S, Q, M * c] in the map dtype."""
     S, M, R0, Wp, c2 = value.shape
     Q, P = x_norm.shape[1], x_norm.shape[3]
+    if not fold_points:
+        out = patch_sample(value.reshape(S, M * R0, Wp, c2), *bev_points(
+            x_norm, y_norm, true_hw, R0, value.dtype))
+        out = out.reshape(S, Q, M, P, c2 // 2)
+        out = (out * weights[..., None].to(out.dtype)).sum(3)
+        return out.reshape(S, Q, M * c2 // 2)
     if P % fold_points:
         raise ValueError(f"P={P} is not a multiple of fold={fold_points}")
     out = patch_sample_fold(

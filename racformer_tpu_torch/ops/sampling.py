@@ -1,7 +1,8 @@
 """Box-anchored sample points and their projection into the multi-view,
 multi-frame image pyramid (port of `racformer_tpu/ops/sampling.py`:
-`make_sample_points`, `project_points_to_views(packed=False)` and the
-level-concatenated branch of `sample_image_features`).
+`make_sample_points`, `project_points_to_views(packed=False)` and
+`sample_image_features` over the level-concatenated map, with the eval
+path's fold gather or the training path's per-level sample).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Sequence
 import torch
 
 from .bbox_codec import decode_bbox, rotation_2d_in_bev
-from .msmv import msmv_sample_fold
+from .msmv import msmv_sample_fold, msmv_sample_levels
 
 
 def make_sample_points(query_bbox: torch.Tensor, offset: torch.Tensor,
@@ -54,11 +55,14 @@ def sample_image_features(
     image_h: int,
     image_w: int,
     cat_geom: tuple,
+    fold: bool = True,
 ) -> torch.Tensor:
     """sample_points: [B, Q, T, G, P, 3] lidar-frame points; feat_cat:
     [B, T, G, N, rcat, Wmax, 2C] level-concatenated sampler-ready pyramid;
     scale_weights: [B, Q, G, T, P, L]; lidar2img: [B, T, N, 4, 4];
-    cat_geom: (true_hws, roffs, rcat) of the concatenated map.
+    cat_geom: (true_hws, roffs, rcat) of the concatenated map; fold: the
+    eval path's fold gather (K1, no gradient), else the training path's
+    per-level sample (`msmv_sample_levels`).
 
     Returns [B, Q, G, T*P, C]."""
     B, Q, T, G, P, _ = sample_points.shape
@@ -77,7 +81,8 @@ def sample_image_features(
     w = scale_weights.permute(0, 2, 3, 1, 4, 5).reshape(B * G * T, Q, P, L)
     hws, roffs, rcat = cat_geom
     feats = feat_cat.reshape(B * T * G, *feat_cat.shape[3:])
-    out = msmv_sample_fold(feats, to_slabs(lx), to_slabs(ly), to_slabs(lv),
-                           w, hws, roffs, rcat)
+    sample = msmv_sample_fold if fold else msmv_sample_levels
+    out = sample(feats, to_slabs(lx), to_slabs(ly), to_slabs(lv), w, hws,
+                 roffs, rcat)
     out = out.reshape(B, T, G, Q, P, C).permute(0, 3, 2, 1, 4, 5)
     return out.reshape(B, Q, G, T * P, C)

@@ -9,6 +9,8 @@ scale / bias from `params` and mean / var from `batch_stats`. The three flax
 `q_proj` / `k_proj` / `v_proj` are joined back into `in_proj_*`. Entries the
 flax tree does not hold (the frustum and code_weights buffers, which come
 from the config, and BN step counters) keep the port model's own values.
+`grads_from_jax` carries a gradient tree (which has the params' structure)
+across the same way, for the parameters only.
 """
 
 from __future__ import annotations
@@ -52,13 +54,17 @@ def _invert(fn, value: np.ndarray, shape) -> np.ndarray:
     return value
 
 
-def state_dict_from_jax(variables_np: Dict, model: torch.nn.Module) -> Dict:
+def state_dict_from_jax(variables_np: Dict, model: torch.nn.Module,
+                        keys=None) -> Dict:
     """variables_np: the JAX model's {'params': ..., 'batch_stats': ...} as
-    numpy trees; model: the port model whose keys and shapes to fill.
+    numpy trees; model: the port model whose keys and shapes to fill; keys:
+    the state-dict keys to convert (default: all).
     Returns a state dict for `model.load_state_dict`. Raises KeyError for a
     port key with no flax counterpart."""
     out = {}
     for key, ref in model.state_dict().items():
+        if keys is not None and key not in keys:
+            continue
         if any(p.search(key) for p in cw.IGNORED_KEYS):
             out[key] = ref.detach().clone()
             continue
@@ -80,3 +86,11 @@ def state_dict_from_jax(variables_np: Dict, model: torch.nn.Module) -> Dict:
                              f"{tuple(ref.shape)}")
         out[key] = torch.from_numpy(np.ascontiguousarray(value)).to(ref.dtype)
     return out
+
+
+def grads_from_jax(grads_np: Dict, model: torch.nn.Module) -> Dict:
+    """grads_np: a numpy tree with the JAX params' structure (e.g. the
+    gradients of a train step). Returns {parameter name: tensor} in the port
+    model's layout."""
+    names = {n for n, _ in model.named_parameters()}
+    return state_dict_from_jax({"params": grads_np}, model, keys=names)

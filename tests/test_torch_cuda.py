@@ -1,6 +1,10 @@
-"""Tests of the port's CUDA kernel K1 (`csrc/gather_fold.cu`) that need an
-NVIDIA GPU. Without one they skip. They import no JAX, so on the card they
-run without the repository's conftest:
+"""Tests of the port's CUDA kernels that need an NVIDIA GPU: K1
+(`csrc/gather_fold.cu`) and the training samplers' K2-K4
+(`csrc/patch_gather.cu`, `patch_scatter.cu`, `patch_corner_grads.cu`), each
+against its plain PyTorch version, plus `force_reference()` routing and the
+wrappers' rejection of inputs the kernels do not take. Without a GPU they
+skip. They import no JAX, so on the card they run without the repository's
+conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -71,3 +75,102 @@ def test_wrapper_rejects_bad_inputs(cuda):
             fused, row, x0p, wx.t().contiguous().t(), wy, wl, 4)
     with pytest.raises(ValueError):
         gather_kernel.patch_sample_fold(fused, row, x0p, wx.cpu(), wy, wl, 4)
+
+
+def _points(dev, dtype, S=3, R=40, Wp=36, C=64, K=4096, seed=0):
+    """A map and K points per slab with ~20% of them clamped into the zero
+    border (and some on its edge), as the samplers produce them."""
+    from racformer_tpu_torch.ops.bilinear import PAD, corner_coords
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, W = R + 1 - 2 * PAD, Wp - 2 * PAD
+    fused = torch.randn(S, R, Wp, 2 * C, generator=g, device=dev)
+    fused[:, :, :PAD] = 0.0
+    fused[:, :, W + PAD:] = 0.0
+    fused = fused.to(dtype)
+    x = torch.rand(S, K, generator=g, device=dev) * (W + 6) - 3.0
+    y = torch.rand(S, K, generator=g, device=dev) * (H + 6) - 3.0
+    far = torch.rand(S, K, generator=g, device=dev) < 0.1
+    x = torch.where(far, x * 50.0, x)
+    x0p, y0p, wx, wy = corner_coords(x, y, H, W, dtype)
+    cot = torch.randn(S, K, C, generator=g, device=dev).to(dtype)
+    return fused, y0p.contiguous(), x0p.contiguous(), wx, wy, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,K", [(64, 4000), (128, 777), (64, 30000)])
+def test_patch_kernels_match_plain(cuda, dtype, C, K):
+    """K2, K3 and K4 against their plain versions. f32: the same f32
+    arithmetic up to the order of the sums (K3's atomics reorder them);
+    bf16: one output rounding in K2, reordered f32 sums in K3 / K4."""
+    from racformer_tpu_torch.ops import scatter_kernel
+
+    fused, row, x0p, wx, wy, g = _points(cuda, dtype, C=C, K=K)
+    counts = (gather_kernel.GATHER_LAUNCHES, scatter_kernel.LAUNCHES,
+              gather_kernel.CORNER_LAUNCHES)
+    out = gather_kernel.patch_gather(fused, row, x0p, wx, wy)
+    dmap = scatter_kernel.patch_scatter(g, row, x0p, wx, wy, fused.shape)
+    dwx, dwy = gather_kernel.patch_corner_grads(fused, g, row, x0p, wx, wy)
+    torch.cuda.synchronize()
+    assert (gather_kernel.GATHER_LAUNCHES, scatter_kernel.LAUNCHES,
+            gather_kernel.CORNER_LAUNCHES) == tuple(c + 1 for c in counts)
+    want = gather_kernel.patch_gather_reference(fused, row, x0p, wx, wy)
+    want_map = scatter_kernel.patch_scatter_reference(g, row, x0p, wx, wy,
+                                                      fused.shape)
+    want_wx, want_wy = gather_kernel.patch_corner_grads_reference(
+        fused, g, row, x0p, wx, wy)
+    assert out.dtype == dtype and dmap.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    else:
+        bound = 1e-2 * want.float().abs().max().item()
+        torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+                                   atol=bound)
+    for got, ref in ((dmap, want_map), (dwx, want_wx), (dwy, want_wy)):
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_patch_sample_grads_on_card(cuda):
+    """`PatchSample` forward and backward on the card against the same
+    function on the CPU (plain versions)."""
+    from racformer_tpu_torch.ops.bilinear import patch_sample
+
+    fused, row, x0p, wx, wy, g = _points(cuda, torch.float32, K=5000)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        f, a, b = (t.detach().to(dev).clone().requires_grad_()
+                   for t in (fused, wx, wy))
+        out = patch_sample(f, row.to(dev), x0p.to(dev), a, b)
+        (out * g.to(dev)).sum().backward()
+        grads.append([out.detach().cpu(), f.grad.cpu(), a.grad.cpu(),
+                      b.grad.cpu()])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_patch_force_reference_and_bad_inputs(cuda):
+    from racformer_tpu_torch.ops import scatter_kernel
+
+    fused, row, x0p, wx, wy, g = _points(cuda, torch.float32)
+    counts = (gather_kernel.GATHER_LAUNCHES, scatter_kernel.LAUNCHES,
+              gather_kernel.CORNER_LAUNCHES)
+    with gather_kernel.force_reference():
+        gather_kernel.patch_gather(fused, row, x0p, wx, wy)
+        scatter_kernel.patch_scatter(g, row, x0p, wx, wy, fused.shape)
+        gather_kernel.patch_corner_grads(fused, g, row, x0p, wx, wy)
+    assert (gather_kernel.GATHER_LAUNCHES, scatter_kernel.LAUNCHES,
+            gather_kernel.CORNER_LAUNCHES) == counts
+    with pytest.raises(TypeError):
+        gather_kernel.patch_gather(fused.half(), row, x0p, wx, wy)
+    with pytest.raises(TypeError):
+        scatter_kernel.patch_scatter(g, row.long(), x0p, wx, wy, fused.shape)
+    with pytest.raises(ValueError):
+        gather_kernel.patch_corner_grads(fused, g[:, :-1], row, x0p, wx, wy)
+    with pytest.raises(ValueError):
+        gather_kernel.patch_gather(fused, row, x0p, wx.t().contiguous().t()
+                                   [:, :], wy.cpu())

@@ -1,0 +1,115 @@
+"""The training path's sampler of the PyTorch port against the JAX package:
+`ops.bilinear.PatchSample` (kernels K2 forward, K3 and K4 backward) against
+the JAX custom VJP `_patch_sample_pallas` (whose Pallas kernels run in
+interpret mode here), reached through `bilinear_sample_views_nhwc`, so the
+coordinate handling (floor, clamp, shift, lerp weights rounded to the map
+dtype) is compared too. `tests/test_torch_sampling_sites.py` compares the
+two sampling sites built on it.
+
+On the CPU the port's wrappers take their plain versions. The inputs hold
+points far outside the map, on its border and on integer pixels, and K
+spans several of the JAX kernels' chunks. embed width 64 per map (2C = 128),
+the only width at which the JAX custom VJP is taken.
+
+Tolerances, relative to each tensor's max |value|: float32 1e-5 (the same
+arithmetic summed in another order); bfloat16 2e-2 (the JAX forward rounds
+its x-lerp to bf16 before the y-mix, the port rounds once; the map
+gradients pass through bf16 additions in both).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from racformer_tpu.ops import bilinear as jbil
+
+from racformer_tpu_torch.ops.bilinear import (PAD, corner_coords, patch_sample,
+                                              sampler_ready)
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def close(got, want, tol, name):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    bound = tol * max(np.abs(want).max(), 1e-6)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=bound, err_msg=name)
+
+
+def _pixels(rng, shape, extent):
+    """Pixel coordinates on an axis of `extent` pixels: most in the map or
+    near its edge, 10% far outside, some on integer pixels and on the
+    border (-1, -0.5, extent - 1, extent)."""
+    x = rng.uniform(-2.5, extent + 1.5, size=shape)
+    far = rng.uniform(size=shape) < 0.1
+    x[far] = rng.choice([-400.0, -9.0, extent + 7.0, 3000.0], size=int(far.sum()))
+    x[..., :4] = [-1.0, -0.5, extent - 1.0, float(extent)]
+    x[..., 4:10] = np.round(x[..., 4:10])
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("K", [37, 5000])
+def test_patch_sample_matches_jax_custom_vjp(dtype, K):
+    """Forward and the gradients for the map, x and y (through wx / wy)
+    against `bilinear_sample_views_nhwc` on the JAX custom-VJP path with the
+    Pallas forward; K=5000 spans two gather chunks and five scatter chunks
+    of the JAX kernels."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(K)
+    S, J, H, W, C = 2, 2, 9, 21, 64
+    feat = rng.normal(size=(S * J, H, W, C)).astype(np.float32)
+    view = (np.arange(S)[:, None] * J + rng.integers(0, J, (S, K))).astype(
+        np.int32)
+    x = _pixels(rng, (S, K), W)
+    y = _pixels(rng, (S, K), H)
+    g = rng.normal(size=(S, K, C)).astype(np.float32)
+
+    def jax_fn(f, xx, yy):
+        out = jbil.bilinear_sample_views_nhwc(
+            f.astype(jdt), jnp.asarray(view), xx, yy, custom_grad=True,
+            blocked_views=True, pallas_forward=True, batch_local=False)
+        return out.astype(jnp.float32)
+
+    want, vjp = jax.vjp(jax_fn, jnp.asarray(feat), jnp.asarray(x), jnp.asarray(y))
+    want_grads = vjp(jnp.asarray(g))
+
+    ft, xt, yt = (torch.tensor(a, requires_grad=True) for a in (feat, x, y))
+    fused = sampler_ready(ft.to(tdt))  # [S*J, R0, Wp, 2C]
+    R0 = fused.shape[1]
+    fused = fused.reshape(S, J * R0, *fused.shape[2:])
+    x0p, y0p, wx, wy = corner_coords(xt, yt, H, W, tdt)
+    row = torch.from_numpy(view % J) * R0 + y0p
+    got = patch_sample(fused, row, x0p, wx, wy).float()
+    got.backward(torch.from_numpy(g))
+    close(got.detach(), want, tol, "out")
+    for t, w, n in zip((ft, xt, yt), want_grads, ("d_feat", "d_x", "d_y")):
+        close(t.grad, w, tol, n)
+    # the border points sample zeros but still carry location gradients
+    assert np.abs(np.asarray(want_grads[1])[:, :4]).max() > 0
+
+
+def test_patch_sample_integer_inputs_get_no_gradient():
+    fused = torch.randn(1, 6, 8, 128, requires_grad=True)
+    row = torch.tensor([[0, 3, 4]], dtype=torch.int32)
+    x0p = torch.tensor([[0, 2, 6]], dtype=torch.int32)
+    wx = torch.rand(1, 3, requires_grad=True)
+    wy = torch.rand(1, 3, requires_grad=True)
+    out = patch_sample(fused, row, x0p, wx, wy)
+    assert out.shape == (1, 3, 64)
+    grads = torch.autograd.grad(out.sum(), (fused, wx, wy))
+    assert all(gr is not None and gr.abs().sum() > 0 for gr in grads)
+    assert not row.requires_grad and not x0p.requires_grad
+
+
+def test_corner_coords_clamp_into_the_border():
+    """floor, clamp to [-PAD, W], shift by PAD; far points land wholly in
+    the zero border."""
+    x = torch.tensor([-1e4, -2.5, -0.25, 0.0, 3.75, 9.0, 10.0, 1e4])
+    x0p, _, wx, _ = corner_coords(x, x, 10, 10, torch.float32)
+    assert x0p.tolist() == [0, 0, 1, 2, 5, 11, 12, 12]
+    assert x0p.max().item() + 1 <= 10 + 2 * PAD - 1
+    torch.testing.assert_close(wx, x - torch.floor(x))
