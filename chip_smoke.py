@@ -24,13 +24,21 @@ Phases, each printed as it runs; any failure exits non-zero:
   7. K2, K3 and K4 against their plain versions at the training path's
      flagship shapes (image site: 32 slabs x 18,480 points x 4 levels; BEV
      sites: 8 slabs x 123,200 points), f32 and bf16 maps, ~20% of the points
-     outside the map;
+     outside the map; each with its time, its bound (bytes counted from the
+     points' unique map columns, or operations) and the time of one PyTorch
+     call of the same function (`F.grid_sample`,
+     `aten.grid_sampler_2d_backward`); K3's bucketing against its plain
+     version, its largest bucket, and a clustered case at the image site
+     (90% of the points in 5% of the rows);
   8. the training path: the flagship config's train step (batch 2 in 2
      microbatches, seeded random weights, batches of the port's
      `SyntheticDataset`) for 5 steps through the train driver's `build`;
      per step K2 must launch 72 times (3 sites x 6 iterations x 2 microbatches,
      twice: the forward and the checkpointed recompute), K3 and K4 36 times;
      losses and gradients finite, trainable parameters moved, frozen ones not;
+     with --train-profile, K3's device ms in the step over all its kernels;
+     K3 on one step's own inputs at each map shape against its plain
+     version, timed, with its largest bucket and busiest column;
   9. one flagship train step with the kernels and one with their plain
      versions, from equal weights, batch and draws: losses and gradients
      compared;
@@ -85,6 +93,47 @@ def median_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+HBM_BYTES_PER_MS = 3.35e12 / 1e3  # H100 SXM device memory, NVIDIA data sheet
+F32_OPS_PER_MS = 67e12 / 1e3  # f32 outside the tensor cores (the samplers')
+# f32 operations per point and channel (of C), from the plain versions'
+# arithmetic: x-lerp of both halves 6, y-mix 3; K1 adds the scalar weight and
+# the fold sum; K3 2 y-products, 4 x-products, 4 adds; K4 8 per location
+# gradient
+OPS_PER_POINT_CHANNEL = {"gather_fold": 11, "patch_gather": 9,
+                         "patch_scatter": 10, "patch_corner_grads": 16}
+
+
+def unique_columns(shape, row, x0p):
+    """Distinct (slab, row, column) map columns that the points read: the
+    columns x0p and x0p + 1 of each point's fused row."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    idx = gk.flat_index(shape, row, x0p)
+    return torch.unique(torch.cat([idx, idx + 1])).numel()
+
+
+def bound_ms(kernel, shape, pts, es, fold=1):
+    """(least ms, 'bytes' or 'operations') of one call of `kernel` on a map
+    of `shape` and points `pts` (row, x0p, wx, wy[, wl]), elements of `es`
+    bytes: each input byte read once (map columns counted once however many
+    points read them, as these inputs need), each output byte written once,
+    against the operations over the f32 rate."""
+    S, R, Wp, C2 = shape
+    C = C2 // 2
+    n = pts[0].numel()
+    per_point = 4 * len(pts)  # int32 / f32 per-point inputs
+    cols = lambda: unique_columns(shape, pts[0], pts[1]) * C2 * es
+    nbytes = {
+        "gather_fold": lambda: cols() + n * per_point + n // fold * C * es,
+        "patch_gather": lambda: cols() + n * per_point + n * C * es,
+        "patch_scatter": lambda: n * C * es + n * per_point + S * R * Wp * C2 * es,
+        "patch_corner_grads": lambda: cols() + n * C * es + n * per_point + n * 8,
+    }[kernel]()
+    t_b = nbytes / HBM_BYTES_PER_MS
+    t_o = n * C * OPS_PER_POINT_CHANNEL[kernel] / F32_OPS_PER_MS
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def coords(gen, shape, dev):
@@ -190,11 +239,12 @@ def phase_build():
     t0 = time.perf_counter()
     cuda_lib.build_all()
     secs = time.perf_counter() - t0
-    sources = ", ".join(f"csrc/{src}" for src, _, _ in cuda_lib.KERNELS.values())
+    sources = ", ".join(sorted({f"csrc/{src}" for src, _, _ in
+                                cuda_lib.KERNELS.values()}))
     print(f"[2] built K1-K4 ({sources}; sm_90a, one nvcc each, in parallel) "
           f"in {secs:.2f} s")
-    for name in cuda_lib.KERNELS:
-        for line in cuda_lib.build_logs.get(name, "").splitlines():
+    for name, log in cuda_lib.build_logs.items():
+        for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[2] ptxas {name}: {line.strip()}")
 
@@ -203,7 +253,7 @@ def phase_kernel(model, dev):
     from racformer_tpu_torch.ops import gather_kernel as gk
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    errs, ms, plain_ms = [], 0.0, 0.0
+    errs, ms, plain_ms, bound, bound_by = [], 0.0, 0.0, 0.0, set()
     for dtype in (torch.float32, torch.bfloat16):
         for name, fmap, pts, fold, outside in site_cases(model, gen, dtype, dev):
             got = gk.patch_sample_fold(fmap, *pts, fold)
@@ -215,23 +265,28 @@ def phase_kernel(model, dev):
                 ok = err <= 1e-5
                 tol = "atol 1e-5"
             else:
-                bound = 1e-2 * ref_max
+                atol = 1e-2 * ref_max
                 ok = bool(((got.float() - want.float()).abs()
-                           <= bound + 1e-2 * want.float().abs()).all())
-                tol = f"rtol 1e-2 + atol {bound:.3g} (1e-2 max|ref|)"
+                           <= atol + 1e-2 * want.float().abs()).all())
+                tol = f"rtol 1e-2 + atol {atol:.3g} (1e-2 max|ref|)"
             t_k = median_ms(lambda: gk.patch_sample_fold(fmap, *pts, fold))
             t_p = median_ms(lambda: gk.patch_sample_fold_reference(
                 fmap, *pts, fold), reps=5, warmup=1)
+            t_b, by = bound_ms("gather_fold", fmap.shape, pts,
+                               fmap.element_size(), fold)
             print(f"[3] K1 {name:9s} {str(dtype):14s} map {tuple(fmap.shape)} "
                   f"K={pts[0].shape[1]} fold={fold} outside={outside:.3f}: "
                   f"max_abs_err={err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                  f"{t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; library: none")
             check(ok, f"K1 disagrees with its plain version at {name} {dtype}")
             errs.append(err)
             if dtype == torch.bfloat16:  # the main path's map dtype
                 ms += t_k
                 plain_ms += t_p
-    return max(errs), ms, plain_ms
+                bound += t_b
+                bound_by.add(by)
+    return max(errs), ms, plain_ms, bound, "/".join(sorted(bound_by))
 
 
 def phase_main(model, dev, profile_path):
@@ -421,6 +476,9 @@ def phase_small(dev):
     check(launched == 6 and ok, "small-config run on the card disagrees with CPU")
 
 TRAIN_STEPS = 5
+# the kernels of one K3 call (csrc/patch_scatter.cu), as the profiler names them
+K3_KERNELS = ("count_chunks", "scan_chunks", "fill_chunks", "accumulate_tiles",
+              "finish_rows")
 SITES = 3  # sampling sites per decoder iteration: image, radar BEV, LSS BEV
 
 
@@ -482,19 +540,102 @@ def train_site_cases(model, gen, dtype, dev):
              outside) for name, fmap, pts, outside in cases]
 
 
+def map_grad_ok(got, want):
+    """K3 against its plain version: (ok, tolerance). Both sum the same f32
+    terms in another order and round once to the map dtype: f32 within 1e-5
+    of max(1, max|ref|); bf16 within one bf16 step of each side's rounding,
+    2^-7 |ref|, plus 1e-5 max|ref| where the terms cancel."""
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        return err.max().item() <= 1e-5 * max(1.0, top), "atol 1e-5 max(1, max|ref|)"
+    return (bool((err <= 2.0**-7 * want.float().abs() + 1e-5 * top).all()),
+            "2^-7 |ref| + 1e-5 max|ref|")
+
+
+def largest_bucket(pts, R):
+    """K3's bucketing (`bucket_by_row`) against its plain version: equal
+    offsets and permutation (the bucketing is stable), each record with its
+    point's inputs. Returns the largest bucket."""
+    from racformer_tpu_torch.ops import scatter_kernel as sk
+
+    row, x0p, wx, wy = pts
+    offsets, records = sk.bucket_by_row(row, x0p, wx, wy, R)
+    want_off, want_perm = sk.bucket_by_row_reference(row, R)
+    p = want_perm.long()
+    check(torch.equal(offsets, want_off) and torch.equal(records[:, 0], want_perm)
+          and torch.equal(records[:, 1], x0p.reshape(-1)[p] + (row.reshape(-1)[p] << 16))
+          and torch.equal(records[:, 2].view(torch.float32), wx.reshape(-1)[p])
+          and torch.equal(records[:, 3].view(torch.float32), wy.reshape(-1)[p]),
+          "K3's bucketing disagrees with bucket_by_row_reference")
+    return int((want_off[1:] - want_off[:-1]).max().item())
+
+
+def library_ms(fmap, pts, g):
+    """One PyTorch call for each of K2, K3, K4's functions, timed, never
+    used by the port: `F.grid_sample` and `aten.grid_sampler_2d_backward`
+    (map gradient, then location gradient) on the un-fused zero-bordered
+    NCHW map [S, C, R + 1, Wp] of the same slabs, rows, columns and C, at the
+    same points (x = x0p + wx, y = row + wy, align_corners, zero padding).
+    Returns {kernel: ms, or None where the call refuses the dtype}."""
+    import torch.nn.functional as F
+
+    S, R, Wp, C2 = fmap.shape
+    C = C2 // 2
+    row, x0p, wx, wy = pts
+    nchw = torch.empty(S, C, R + 1, Wp, dtype=fmap.dtype, device=fmap.device)
+    nchw[:, :, :R] = fmap[..., :C].permute(0, 3, 1, 2)
+    nchw[:, :, R] = fmap[:, R - 1, :, C:].permute(0, 2, 1)
+    x = x0p.float() + wx
+    y = row.float() + wy
+    grid = torch.stack([2 * x / (Wp - 1) - 1, 2 * y / R - 1], -1)[:, None]
+    grid = grid.to(fmap.dtype)
+    gout = g.permute(0, 2, 1)[:, :, None].contiguous()  # [S, C, 1, K]
+    back = torch.ops.aten.grid_sampler_2d_backward
+    calls = {
+        "patch_gather": lambda: F.grid_sample(
+            nchw, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+        "patch_scatter": lambda: back(gout, nchw, grid, 0, 0, True, [True, False]),
+        "patch_corner_grads": lambda: back(gout, nchw, grid, 0, 0, True,
+                                           [False, True]),
+    }
+    out = {}
+    for name, fn in calls.items():
+        try:
+            out[name] = median_ms(fn, reps=5, warmup=1)
+        except RuntimeError as e:  # a dtype the CUDA op does not take
+            print(f"[7] library call for {name} refused {fmap.dtype}: "
+                  f"{str(e).splitlines()[0]}")
+            out[name] = None
+    return out
+
+
+def clustered(row, R, gen):
+    """row with 90% of each slab's points moved into 5% of its rows."""
+    S, K = row.shape
+    hot = torch.stack([torch.randperm(R, generator=gen, device=row.device)
+                       [:max(1, R // 20)] for _ in range(S)])
+    pick = torch.randint(0, hot.shape[1], (S, K), generator=gen, device=row.device)
+    move = torch.rand(S, K, generator=gen, device=row.device) < 0.9
+    return torch.where(move, torch.gather(hot, 1, pick), row).to(torch.int32)
+
+
 def phase_patch_kernels(model, dev):
-    """K2, K3, K4 against their plain versions. Returns {kernel: (max abs
-    err, kernel ms, plain ms)}, the times summed over the three sites with
-    bf16 maps (the training path's map dtype)."""
+    """K2, K3, K4 against their plain versions, with their bounds and
+    library calls; K3 also with its bucketing and a clustered case. Returns
+    {kernel: {err, ms, plain_ms, bound_ms, bound_by, library_ms}}, the times
+    summed over the three sites with bf16 maps (the training path's dtype)."""
     from racformer_tpu_torch.ops import gather_kernel as gk
     from racformer_tpu_torch.ops import scatter_kernel as sk
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    stats = {k: [0.0, 0.0, 0.0] for k in ("patch_gather", "patch_scatter",
-                                          "patch_corner_grads")}
+    stats = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=set(),
+                     library_ms=0.0)
+             for k in ("patch_gather", "patch_scatter", "patch_corner_grads")}
     for dtype in (torch.float32, torch.bfloat16):
         for name, fmap, pts, g, outside in train_site_cases(model, gen, dtype, dev):
             shape = tuple(fmap.shape)
+            es = fmap.element_size()
             runs = {
                 "patch_gather": (lambda: gk.patch_gather(fmap, *pts),
                                  lambda: gk.patch_gather_reference(fmap, *pts)),
@@ -505,9 +646,11 @@ def phase_patch_kernels(model, dev):
                     lambda: gk.patch_corner_grads(fmap, g, *pts),
                     lambda: gk.patch_corner_grads_reference(fmap, g, *pts)),
             }
+            lib = library_ms(fmap, pts, g)
             for kname, (kern, plain) in runs.items():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
+                extra = ""
                 if kname == "patch_corner_grads":
                     errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
                     ref_max = max(b.abs().max().item() for b in want)
@@ -517,30 +660,64 @@ def phase_patch_kernels(model, dev):
                     err = (got.float() - want.float()).abs().max().item()
                     ref_max = want.float().abs().max().item()
                     detail = f"{err:.3g}"
-                if kname == "patch_gather" and dtype == torch.bfloat16:
+                if kname == "patch_scatter":
+                    check(got.dtype == dtype, f"K3 returned {got.dtype}")
+                    ok, tol = map_grad_ok(got, want)
+                    extra = f", largest bucket {largest_bucket(pts, shape[1])}"
+                elif kname == "patch_gather" and dtype == torch.bfloat16:
                     # one bf16 rounding of the output in each version
                     ok = bool(((got.float() - want.float()).abs()
                                <= 1e-2 * ref_max + 1e-2 * want.float().abs()).all())
                     tol = "rtol 1e-2 + atol 1e-2 max|ref|"
                 else:
-                    # f32 arithmetic on both sides; K3's atomics and K4's
-                    # shuffles sum in another order
+                    # f32 arithmetic on both sides; K4's shuffles sum in
+                    # another order
                     ok = err <= 1e-5 * max(ref_max, 1.0)
                     tol = "atol 1e-5 max(1, max|ref|)"
+                del got, want
                 t_k = median_ms(kern, reps=10, warmup=2)
                 t_p = median_ms(plain, reps=3, warmup=1)
+                t_b, by = bound_ms(kname, shape, pts, es)
+                t_l = lib[kname]
                 print(f"[7] {kname:18s} {name:9s} {str(dtype):14s} map {shape} "
                       f"K={pts[0].shape[1]} outside={outside:.3f}: max_abs_err "
                       f"{detail} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
-                      f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+                      f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {t_b:.4f} ms "
+                      f"({by}), share {t_b / t_k:.3f}, library "
+                      f"{'refused' if t_l is None else f'{t_l:.4f} ms'}{extra}")
                 check(ok, f"{kname} disagrees with its plain version at {name} "
                           f"{dtype}")
                 st = stats[kname]
-                st[0] = max(st[0], err)
+                st["err"] = max(st["err"], err)
                 if dtype == torch.bfloat16:
-                    st[1] += t_k
-                    st[2] += t_p
+                    st["ms"] += t_k
+                    st["plain_ms"] += t_p
+                    st["bound_ms"] += t_b
+                    st["bound_by"].add(by)
+                    st["library_ms"] = (None if t_l is None or st["library_ms"] is None
+                                        else st["library_ms"] + t_l)
+            if name == "image":
+                hot = (clustered(pts[0], shape[1], gen), *pts[1:])
+                got = sk.patch_scatter(g, *hot, shape)
+                want = sk.patch_scatter_reference(g, *hot, shape)
+                ok, tol = map_grad_ok(got, want)
+                err = (got.float() - want.float()).abs().max().item()
+                del got, want
+                t_k = median_ms(lambda: sk.patch_scatter(g, *hot, shape), reps=10,
+                                warmup=2)
+                t_b, by = bound_ms("patch_scatter", shape, hot, es)
+                print(f"[7] patch_scatter      image, clustered (90% of the points "
+                      f"in 5% of the rows) {str(dtype):14s}: max_abs_err "
+                      f"{err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
+                      f"{t_k:.4f} ms, bound {t_b:.4f} ms ({by}), share "
+                      f"{t_b / t_k:.3f}, largest bucket "
+                      f"{largest_bucket(hot, shape[1])}")
+                check(ok, f"patch_scatter disagrees with its plain version on "
+                          f"clustered points, {dtype}")
+                del hot
             del runs
+    for st in stats.values():
+        st["bound_by"] = "/".join(sorted(st["bound_by"]))
     return stats
 
 
@@ -632,7 +809,62 @@ def phase_train(cfg, dev, profile_path):
                   f"{e.count:6d} calls  {e.key}")
         print(f"[8]   aten ops in the step: "
               f"{sum(e.count for e in events if e.key.startswith('aten::'))}")
+        k3 = {k: [e for e in events if e.device_type == DeviceType.CUDA
+                  and k in e.key] for k in K3_KERNELS}
+        k3_ms = sum(e.self_device_time_total for es in k3.values() for e in es)
+        parts = ", ".join(f"{k} {sum(e.count for e in es)}" for k, es in k3.items())
+        backward = [e for e in events if e.key == "PatchSampleBackward"]
+        print(f"[8]   K3 in the step: {k3_ms / 1e3:.3f} ms device over its "
+              f"kernels' launches ({parts}); PatchSampleBackward (K3, K4 and "
+              f"their scratch) "
+              f"{sum(e.device_time_total for e in backward) / 1e3:.3f} ms "
+              f"device over {sum(e.count for e in backward)} calls")
+    step_k3_inputs(train_step, batches[-1], gen)
     return model, batches[0], launches, steady, step_ms[0], peak
+
+
+def step_k3_inputs(train_step, batch, gen):
+    """K3 on its own inputs from one train step (the first call at each map
+    shape), against its plain version and timed, with the row and column
+    statistics that set its work apart from phase 7's uniform points."""
+    from racformer_tpu_torch.ops import scatter_kernel as sk
+
+    caught, orig = {}, sk.patch_scatter
+
+    def spy(g, row, x0p, wx, wy, shape):
+        if tuple(shape) not in caught:
+            caught[tuple(shape)] = [t.clone() for t in (g, row, x0p, wx, wy)]
+        return orig(g, row, x0p, wx, wy, shape)
+
+    sk.patch_scatter = spy
+    try:
+        train_step(batch, gen)
+    finally:
+        sk.patch_scatter = orig
+    torch.cuda.synchronize()
+    for shape, (g, *pts) in caught.items():
+        S, R, Wp, _ = shape
+        row, x0p = pts[:2]
+        got = sk.patch_scatter(g, *pts, shape)
+        want = sk.patch_scatter_reference(g, *pts, shape)
+        ok, tol = map_grad_ok(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+        t_k = median_ms(lambda: sk.patch_scatter(g, *pts, shape), reps=10, warmup=2)
+        t_b, by = bound_ms("patch_scatter", shape, pts, g.element_size())
+        key = (torch.arange(S, device=row.device)[:, None] * R + row.long()).reshape(-1)
+        counts = torch.bincount(key, minlength=S * R).sort(descending=True).values
+        cols = torch.bincount(x0p.reshape(-1).long(), minlength=Wp)
+        n = key.numel()
+        print(f"[8] K3 on the step's inputs, map {shape} K={row.shape[1]} {g.dtype}: "
+              f"max_abs_err {err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
+              f"{t_k:.4f} ms, bound {t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; "
+              f"largest bucket {counts[0].item()}, rows with points "
+              f"{(counts > 0).float().mean().item():.3f}, points in the busiest 1% "
+              f"of rows {counts[:max(1, S * R // 100)].sum().item() / n:.3f}, "
+              f"busiest column {cols.argmax().item()} with "
+              f"{cols.max().item() / n:.3f} of the points")
+        check(ok, f"K3 disagrees with its plain version on the step's inputs {shape}")
 
 
 def grads_of(model, metrics, clip=35.0):
@@ -687,7 +919,7 @@ def phase_train_reference(model, batch, cfg, dev):
     loss_rel, cos, rel = compare_steps(
         "[9] flagship train step, kernels vs plain versions:", a, b, ga, gb)
     # bf16 maps: both versions compute in f32 and round each gathered value
-    # and each map gradient to bf16 once; K3's atomics sum in another order,
+    # and each map gradient to bf16 once; K3 sums its terms in another order,
     # so some map-gradient elements round the other way, and that noise
     # passes through the bf16 trunk's backward
     check(loss_rel <= 1e-3 and cos >= 0.99 and rel <= 0.05,
@@ -774,7 +1006,7 @@ def main(argv):
           f"BEV {kwargs['bev_size']}; "
           f"{sum(p.numel() for p in model.parameters())} parameters")
 
-    max_err, k_ms, p_ms = phase_kernel(model, dev)
+    max_err, k_ms, p_ms, b_ms, b_by = phase_kernel(model, dev)
     ev, steady, peak, launches = phase_main(model, dev, args.profile)
     phase_reference(model, ev)
     phase_small(dev)
@@ -799,17 +1031,21 @@ def main(argv):
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
         "replaces": "racformer_tpu/ops/gather_kernel.py:187",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}]
     for (name, replaces), n in zip((
             ("patch_gather", "racformer_tpu/ops/gather_kernel.py:53"),
             ("patch_scatter", "racformer_tpu/ops/scatter_kernel.py:47"),
             ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
             tlaunches[1:]):
-        err, ms, plain = patch[name]
+        st = patch[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",
                         "replaces": replaces, "launches": n,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain})
+                        "max_abs_err": st["err"], "ms": st["ms"],
+                        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                        "bound_by": st["bound_by"],
+                        "library_ms": st["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,7 +76,7 @@ class PatchSample(torch.autograd.Function):
         d_fused = d_wx = d_wy = None
         if ctx.needs_input_grad[0]:
             d_fused = scatter_kernel.patch_scatter(
-                g, row, x0p, wx, wy, fused.shape).to(fused.dtype)
+                g, row, x0p, wx, wy, fused.shape)  # in the map dtype
         if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
             d_wx, d_wy = gather_kernel.patch_corner_grads(
                 fused, g, row, x0p, wx, wy)

@@ -25,15 +25,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _CI, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# library name -> (source in csrc/, C entry point, its argument types); each
-# library is one source, so `build_all` runs one nvcc per kernel at once
+# entry name -> (source in csrc/, C entry point, its argument types); each
+# source is one library, named after it, so `build_all` runs one nvcc per
+# source at once
 KERNELS = {
     "gather_fold": ("gather_fold.cu", "racformer_gather_fold",
                     [_CI] + [_VP] * 7 + [_CI, _I64, _CI, _CI, _CI, _CI, _VP]),
     "patch_gather": ("patch_gather.cu", "racformer_patch_gather",
                      [_CI] + [_VP] * 6 + [_CI, _I64, _CI, _CI, _CI, _VP]),
     "patch_scatter": ("patch_scatter.cu", "racformer_patch_scatter",
-                      [_CI] + [_VP] * 6 + [_CI, _I64, _CI, _CI, _CI, _VP]),
+                      [_CI] + [_VP] * 10 + [_CI] * 5 + [_VP]),
+    "bucket_rows": ("patch_scatter.cu", "racformer_bucket_rows",
+                    [_VP] * 7 + [_CI] * 3 + [_VP]),
     "patch_corner_grads": ("patch_corner_grads.cu",
                            "racformer_patch_corner_grads",
                            [_CI] + [_VP] * 8 + [_CI, _I64, _CI, _CI, _CI, _VP]),
@@ -83,10 +86,10 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
 
 
 def function(name: str):
-    """The C entry point of kernel library `name` (a key of `KERNELS`),
-    built and loaded at first use, with its argument types set."""
+    """The C entry point `name` (a key of `KERNELS`) of its source's
+    library, built and loaded at first use, with its argument types set."""
     source, symbol, argtypes = KERNELS[name]
-    fn = getattr(load(name, (source,)), symbol)
+    fn = getattr(load(Path(source).stem, (source,)), symbol)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -96,6 +99,9 @@ def function(name: str):
 def build_all() -> None:
     """Build (or load) every kernel library now, one nvcc per source, all
     started together."""
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        for _ in pool.map(function, KERNELS):
+    one_per_source = {src: name for name, (src, _, _) in KERNELS.items()}
+    with ThreadPoolExecutor(len(one_per_source)) as pool:
+        for _ in pool.map(function, one_per_source.values()):
             pass
+    for name in KERNELS:
+        function(name)

@@ -20,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from ..config import Config
 from ..data import SyntheticDataset
 from ..model import RaCFormer, random_init_
 from .optim import Optimizer
@@ -79,9 +80,6 @@ def main(argv=None):
         raise SystemExit("only --synthetic training is ported")
     if not torch.cuda.is_available():
         raise SystemExit("the train driver needs a CUDA device")
-    # the JAX package's config loader imports no JAX and resolves `_base_`
-    from racformer_tpu.config import Config
-
     cfg = Config.fromfile(args.config)
     device = torch.device("cuda")
     total = args.max_steps or 100_000

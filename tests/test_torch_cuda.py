@@ -102,8 +102,9 @@ def _points(dev, dtype, S=3, R=40, Wp=36, C=64, K=4096, seed=0):
 @pytest.mark.parametrize("C,K", [(64, 4000), (128, 777), (64, 30000)])
 def test_patch_kernels_match_plain(cuda, dtype, C, K):
     """K2, K3 and K4 against their plain versions. f32: the same f32
-    arithmetic up to the order of the sums (K3's atomics reorder them);
-    bf16: one output rounding in K2, reordered f32 sums in K3 / K4."""
+    arithmetic up to the order of the sums (K3 sums each column's terms in
+    bucket order); bf16: one output rounding in K2 and K3, reordered f32
+    sums in K3 / K4."""
     from racformer_tpu_torch.ops import scatter_kernel
 
     fused, row, x0p, wx, wy, g = _points(cuda, dtype, C=C, K=K)
@@ -120,16 +121,100 @@ def test_patch_kernels_match_plain(cuda, dtype, C, K):
                                                       fused.shape)
     want_wx, want_wy = gather_kernel.patch_corner_grads_reference(
         fused, g, row, x0p, wx, wy)
-    assert out.dtype == dtype and dmap.dtype == torch.float32
+    assert out.dtype == dtype and dmap.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
     else:
         bound = 1e-2 * want.float().abs().max().item()
         torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
                                    atol=bound)
-    for got, ref in ((dmap, want_map), (dwx, want_wx), (dwy, want_wy)):
+    _assert_map_grad_close(dmap, want_map)
+    for got, ref in ((dwx, want_wx), (dwy, want_wy)):
         torch.testing.assert_close(got, ref, rtol=1e-5,
                                    atol=1e-5 * ref.abs().max().item())
+
+
+def _assert_map_grad_close(got, want):
+    """K3 against its plain version. Both sum the same f32 terms, in another
+    order (K3's register and tile sums), and round the sum to the map dtype
+    once. f32: 1e-5 of max(1, max|want|). bf16: the two f32 sums may round
+    to neighbouring bf16 values, one bf16 step apart, at most 2^-7 |want|,
+    plus 1e-5 max|want| where terms cancel to near zero."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    dtype = want.dtype
+    got, want = got.float(), want.float()
+    top = want.abs().max().item()
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5 * max(1.0, top)
+    else:
+        assert bool((err <= 2.0**-7 * want.abs() + 1e-5 * top).all())
+
+
+def _edge_points(dev, dtype, case, S=3, R=40, Wp=36, C=64, K=5000):
+    """K3 inputs of one edge case (see `test_patch_scatter_edge_cases`)."""
+    fused, row, x0p, wx, wy, g = _points(dev, dtype, S=S, R=R, Wp=Wp, C=C, K=K)
+    if case == "one_row":
+        row = torch.full_like(row, R // 3)
+    elif case == "all_outside":  # every corner clamped into the zero border
+        x0p = torch.where(torch.arange(K, device=dev) % 2 == 0, 0, Wp - 2)
+        x0p = x0p.to(torch.int32).expand(S, K).contiguous()
+    elif case == "empty_rows":  # only every fourth row holds points
+        row = (row // 4 * 4).contiguous()
+    elif case == "hot_column":  # a third of the points in one row and column
+        hot = torch.arange(K, device=dev) % 3 == 0
+        row = torch.where(hot, R // 2, row).to(torch.int32).contiguous()
+        x0p = torch.where(hot, 0, x0p).to(torch.int32).contiguous()
+    return fused, row, x0p, wx, wy, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,K", [("one_row", 5000), ("all_outside", 5000),
+                                    ("empty_rows", 5000), ("hot_column", 5000),
+                                    ("ragged", 1),
+                                    ("ragged", 511), ("ragged", 4097)])
+def test_patch_scatter_edge_cases(cuda, dtype, case, K):
+    """K3 against its plain version: all points in one row (one bucket holds
+    the slab, cut over several tiles), every point in the border, empty rows
+    between full ones, a hot row whose points share one column, and point
+    counts that are not multiples of the kernels' block and tile sizes."""
+    from racformer_tpu_torch.ops import scatter_kernel
+
+    fused, row, x0p, wx, wy, g = _edge_points(cuda, dtype, case, K=K)
+    got = scatter_kernel.patch_scatter(g, row, x0p, wx, wy, fused.shape)
+    torch.cuda.synchronize()
+    want = scatter_kernel.patch_scatter_reference(g, row, x0p, wx, wy,
+                                                  fused.shape)
+    _assert_map_grad_close(got, want)
+    offsets, records = scatter_kernel.bucket_by_row(row, x0p, wx, wy,
+                                                    fused.shape[1])
+    want_off, want_perm = scatter_kernel.bucket_by_row_reference(
+        row, fused.shape[1])
+    # the bucketing is stable: each bucket lists its points in ascending order
+    assert torch.equal(offsets, want_off)
+    assert torch.equal(records[:, 0], want_perm)
+    p = want_perm.long()  # each record carries its point's inputs
+    assert torch.equal(records[:, 1], x0p.reshape(-1)[p] + (row.reshape(-1)[p] << 16))
+    assert torch.equal(records[:, 2].view(torch.float32), wx.reshape(-1)[p])
+    assert torch.equal(records[:, 3].view(torch.float32), wy.reshape(-1)[p])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_patch_scatter_is_repeatable(cuda, dtype):
+    """K3 adds without atomics: each accumulator element has one owner that
+    adds its terms in the (stable) bucket order, and a hot row's tile pieces
+    are summed in tile order, so two runs on the same inputs, hot rows
+    included, are bitwise equal."""
+    from racformer_tpu_torch.ops import scatter_kernel
+
+    fused, row, x0p, wx, wy, g = _points(cuda, dtype, K=30000)
+    row = torch.where(torch.arange(30000, device=cuda) % 3 == 0, 7, row)
+    row = row.to(torch.int32).contiguous()
+    runs = [scatter_kernel.patch_scatter(g, row, x0p, wx, wy, fused.shape)
+            for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
 
 
 @pytest.mark.cuda

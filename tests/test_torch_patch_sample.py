@@ -25,6 +25,7 @@ import torch
 
 from racformer_tpu.ops import bilinear as jbil
 
+from racformer_tpu_torch.ops import scatter_kernel
 from racformer_tpu_torch.ops.bilinear import (PAD, corner_coords, patch_sample,
                                               sampler_ready)
 
@@ -53,11 +54,11 @@ def _pixels(rng, shape, extent):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("K", [37, 5000])
-def test_patch_sample_matches_jax_custom_vjp(dtype, K):
+def test_patch_sample_matches_jax_custom_vjp(dtype, K, monkeypatch):
     """Forward and the gradients for the map, x and y (through wx / wy)
     against `bilinear_sample_views_nhwc` on the JAX custom-VJP path with the
     Pallas forward; K=5000 spans two gather chunks and five scatter chunks
-    of the JAX kernels."""
+    of the JAX kernels. K3 returns the map gradient in the map's dtype."""
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(K)
     S, J, H, W, C = 2, 2, 9, 21, 64
@@ -83,8 +84,13 @@ def test_patch_sample_matches_jax_custom_vjp(dtype, K):
     fused = fused.reshape(S, J * R0, *fused.shape[2:])
     x0p, y0p, wx, wy = corner_coords(xt, yt, H, W, tdt)
     row = torch.from_numpy(view % J) * R0 + y0p
+    scattered = []
+    scatter = scatter_kernel.patch_scatter
+    monkeypatch.setattr(scatter_kernel, "patch_scatter",
+                        lambda *a: scattered.append(scatter(*a)) or scattered[-1])
     got = patch_sample(fused, row, x0p, wx, wy).float()
     got.backward(torch.from_numpy(g))
+    assert [d.dtype for d in scattered] == [fused.dtype]
     close(got.detach(), want, tol, "out")
     for t, w, n in zip((ft, xt, yt), want_grads, ("d_feat", "d_x", "d_y")):
         close(t.grad, w, tol, n)
@@ -103,6 +109,36 @@ def test_patch_sample_integer_inputs_get_no_gradient():
     grads = torch.autograd.grad(out.sum(), (fused, wx, wy))
     assert all(gr is not None and gr.abs().sum() > 0 for gr in grads)
     assert not row.requires_grad and not x0p.requires_grad
+
+
+@pytest.mark.parametrize("S,R,K", [(3, 7, 50), (2, 40, 1), (1, 5, 333),
+                                     (2, 1, 64), (2, 9, 1025)])
+def test_bucket_by_row_contract(S, R, K):
+    """The bucketing K3 relies on: every point appears once, in the bucket
+    of its key s * R + row, and the offsets are the cumulative row counts
+    (empty rows included); each record carries its point's x0p and row, wx,
+    wy."""
+    rng = np.random.default_rng(S * 100 + K)
+    row_np = rng.integers(0, R, size=(S, K))
+    row_np[:, : K // 2] = R // 2  # a hot row beside empty ones
+    x0p = torch.from_numpy(rng.integers(0, 9, size=(S, K))).to(torch.int32)
+    wx, wy = (torch.from_numpy(rng.uniform(size=(S, K)).astype(np.float32))
+              for _ in range(2))
+    offsets, records = scatter_kernel.bucket_by_row(
+        torch.from_numpy(row_np).to(torch.int32), x0p, wx, wy, R)
+    assert offsets.dtype == records.dtype == torch.int32
+    key = (np.arange(S)[:, None] * R + row_np).reshape(-1)
+    want = np.concatenate([[0], np.cumsum(np.bincount(key, minlength=S * R))])
+    np.testing.assert_array_equal(offsets.numpy(), want)
+    perm = records[:, 0].numpy()
+    np.testing.assert_array_equal(np.sort(perm), np.arange(S * K))
+    bucket = np.repeat(np.arange(S * R), np.diff(want))
+    np.testing.assert_array_equal(key[perm], bucket)
+    np.testing.assert_array_equal(records[:, 1].numpy(), x0p.numpy().reshape(-1)[perm]
+                                  + (row_np.reshape(-1)[perm] << 16))
+    for col, w in ((2, wx), (3, wy)):
+        np.testing.assert_array_equal(records[:, col].view(torch.float32).numpy(),
+                                      w.numpy().reshape(-1)[perm])
 
 
 def test_corner_coords_clamp_into_the_border():

@@ -5,11 +5,14 @@ port.
   checkpoint's keys and shapes (`tests/reference_keyset.py`).
 * JAX -> port conversion is the exact inverse of the JAX package's
   port -> JAX converter: a round trip returns every tensor bit for bit.
-* Importing the port loads neither jax nor flax, and its sources use no
-  fused-attention operator, `torch.compile` or kernel library.
+* Importing the port (`train.__main__` and the config loader included) loads
+  neither jax, flax nor the JAX package `racformer_tpu`; its sources and
+  `chip_smoke.py` import none of them and use no fused-attention operator,
+  `torch.compile` or kernel library.
 """
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -70,7 +73,9 @@ def test_import_leaves_jax_out():
             "import racformer_tpu_torch.model, racformer_tpu_torch.eval\n"
             "import racformer_tpu_torch.ops.gather_kernel\n"
             "import racformer_tpu_torch.tools.convert_weights\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]\n"
+            "import racformer_tpu_torch.train.__main__, racformer_tpu_torch.config\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'flax', 'racformer_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -81,7 +86,12 @@ def test_port_sources_use_no_forbidden_code():
     banned = ("import jax", "from jax", "import flax", "from flax",
               "scaled_dot_product_attention", "torch.compile",
               "cpp_extension", "import triton", "flash_attn", "xformers")
-    for path in (REPO / "racformer_tpu_torch").rglob("*.py"):
+    # the JAX package itself, but not the port's own name
+    jax_package = re.compile(r"from racformer_tpu\.|from racformer_tpu import"
+                             r"|import racformer_tpu(?!_torch)")
+    for path in [REPO / "chip_smoke.py",
+                 *(REPO / "racformer_tpu_torch").rglob("*.py")]:
         text = path.read_text()
         for b in banned:
             assert b not in text, f"{path.name} contains {b!r}"
+        assert not jax_package.search(text), f"{path.name} imports racformer_tpu"
