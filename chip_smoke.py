@@ -29,16 +29,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      call of the same function (`F.grid_sample`,
      `aten.grid_sampler_2d_backward`); K3's bucketing against its plain
      version, its largest bucket, and a clustered case at the image site
-     (90% of the points in 5% of the rows);
+     (90% of the points in 5% of the rows); K2 and K4 on the edges of their
+     point tiling at the image site (K = 1 and 33, the last column and row,
+     every point on the zero border, the clustered points);
   8. the training path: the flagship config's train step (batch 2 in 2
      microbatches, seeded random weights, batches of the port's
      `SyntheticDataset`) for 5 steps through the train driver's `build`;
      per step K2 must launch 72 times (3 sites x 6 iterations x 2 microbatches,
      twice: the forward and the checkpointed recompute), K3 and K4 36 times;
      losses and gradients finite, trainable parameters moved, frozen ones not;
-     with --train-profile, K3's device ms in the step over all its kernels;
-     K3 on one step's own inputs at each map shape against its plain
-     version, timed, with its largest bucket and busiest column;
+     with --train-profile, K2's, K3's and K4's device ms in the step by
+     kernel name; K2, K3 and K4 on one step's own inputs at each map shape
+     against their plain versions, timed, with the points' row, column and
+     distinct-column statistics;
   9. one flagship train step with the kernels and one with their plain
      versions, from equal weights, batch and draws: losses and gradients
      compared;
@@ -52,6 +55,7 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import runpy
 import statistics
@@ -114,17 +118,19 @@ def unique_columns(shape, row, x0p):
     return torch.unique(torch.cat([idx, idx + 1])).numel()
 
 
-def bound_ms(kernel, shape, pts, es, fold=1):
+def bound_ms(kernel, shape, pts, es, fold=1, reread=False):
     """(least ms, 'bytes' or 'operations') of one call of `kernel` on a map
     of `shape` and points `pts` (row, x0p, wx, wy[, wl]), elements of `es`
     bytes: each input byte read once (map columns counted once however many
     points read them, as these inputs need), each output byte written once,
-    against the operations over the f32 rate."""
+    against the operations over the f32 rate. With `reread`, each point's
+    two columns count as read from device memory (no reuse in L2)."""
     S, R, Wp, C2 = shape
     C = C2 // 2
     n = pts[0].numel()
     per_point = 4 * len(pts)  # int32 / f32 per-point inputs
-    cols = lambda: unique_columns(shape, pts[0], pts[1]) * C2 * es
+    cols = lambda: (2 * n if reread else unique_columns(shape, pts[0], pts[1])
+                    ) * C2 * es
     nbytes = {
         "gather_fold": lambda: cols() + n * per_point + n // fold * C * es,
         "patch_gather": lambda: cols() + n * per_point + n * C * es,
@@ -620,12 +626,110 @@ def clustered(row, R, gen):
     return torch.where(move, torch.gather(hot, 1, pick), row).to(torch.int32)
 
 
+def patch_runs(fmap, pts, g):
+    """{kernel: (kernel call, plain call)} for K2, K3 and K4 on one map,
+    its points (row, x0p, wx, wy) and the cotangent g."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+    from racformer_tpu_torch.ops import scatter_kernel as sk
+
+    shape = tuple(fmap.shape)
+    return {
+        "patch_gather": (lambda: gk.patch_gather(fmap, *pts),
+                         lambda: gk.patch_gather_reference(fmap, *pts)),
+        "patch_scatter": (lambda: sk.patch_scatter(g, *pts, shape),
+                          lambda: sk.patch_scatter_reference(g, *pts, shape)),
+        "patch_corner_grads": (
+            lambda: gk.patch_corner_grads(fmap, g, *pts),
+            lambda: gk.patch_corner_grads_reference(fmap, g, *pts)),
+    }
+
+
+def compare(kname, got, want, dtype, floor=1.0):
+    """A K2, K3 or K4 result against its plain version's: (ok, max abs
+    error, its printout, the tolerance). Where both sides compute in f32
+    the error is held to 1e-5 max(floor, max|ref|), for K4 each output
+    against its own max|ref|: floor 1 for phase 7's inputs of order one,
+    0 for a train step's tiny location gradients."""
+    atol = "1e-5 max|ref|" if floor == 0 else f"1e-5 max({floor:g}, max|ref|)"
+    if kname == "patch_corner_grads":
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        tops = [b.abs().max().item() for b in want]
+        # f32 arithmetic on both sides; the shuffles sum in another order
+        ok = all(e <= 1e-5 * max(floor, t) for e, t in zip(errs, tops))
+        detail = ", ".join(f"{n} {e:.3g} (max|ref| {t:.3g})"
+                           for n, e, t in zip(("d_wx", "d_wy"), errs, tops))
+        return ok, max(errs), detail, f"atol {atol} per output"
+    check(got.dtype == dtype, f"{kname} returned {got.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    ref_max = want.float().abs().max().item()
+    if kname == "patch_scatter":
+        ok, tol = map_grad_ok(got, want)
+    elif dtype == torch.bfloat16:
+        # K2: one bf16 rounding of the output in each version
+        ok = bool(((got.float() - want.float()).abs()
+                   <= 1e-2 * ref_max + 1e-2 * want.float().abs()).all())
+        tol = "rtol 1e-2 + atol 1e-2 max|ref|"
+    else:
+        ok, tol = err <= 1e-5 * max(floor, ref_max), f"atol {atol}"
+    return ok, err, f"{err:.3g}", tol
+
+
+def gather_edge_cases(fmap, pts, g, gen):
+    """K2 and K4 against their plain versions on the edges of their point
+    tiling (csrc/point_tiles.cuh), on the image site's map: point counts
+    that leave a ragged tile, points at the last column and the last row,
+    every point touching the zero border, and clustered points (timed)."""
+    S, R, Wp, _ = fmap.shape
+    row, x0p, wx, wy = pts
+    K, dev, dtype = row.shape[1], row.device, fmap.dtype
+    idx = torch.arange(K, device=dev)
+    # x0p = 0 reads columns 0-1, x0p = Wp - 2 columns Wp - 2 and Wp - 1: the
+    # zero border on either side (PAD = 2 columns)
+    border = torch.tensor([0, Wp - 2], dtype=torch.int32, device=dev)
+    cases = {
+        "K=1": (row[:, :1], x0p[:, :1], wx[:, :1], wy[:, :1], g[:, :1]),
+        "K=33 (tile + 1)": (row[:, :33], x0p[:, :33], wx[:, :33], wy[:, :33],
+                            g[:, :33]),
+        "last column (x0p = Wp - 2) and last row (row = R - 1)": (
+            torch.where(idx % 3 == 0, R - 1, row),
+            torch.where(idx % 2 == 0, Wp - 2, x0p), wx, wy, g),
+        "all outside (x0p in 0, Wp - 2: zero border)": (
+            row, border[idx % 2].expand(S, K), wx, wy, g),
+        "clustered (90% of the points in 5% of the rows)": (
+            clustered(row, R, gen), x0p, wx, wy, g),
+    }
+    for case, (r, x, a, b, gg) in cases.items():
+        hot = (r.to(torch.int32).contiguous(), x.to(torch.int32).contiguous(),
+               a.contiguous(), b.contiguous())
+        gg = gg.contiguous()
+        runs = {k: v for k, v in patch_runs(fmap, hot, gg).items()
+                if k != "patch_scatter"}
+        for kname, (kern, plain) in runs.items():
+            want = plain()
+            if case.startswith("all outside"):
+                check(all(not w.any() for w in (want if isinstance(want, tuple)
+                                                else (want,))),
+                      f"{kname}'s plain version is not zero on the zero border")
+            ok, err, detail, tol = compare(kname, kern(), want, dtype)
+            timing = ""
+            if case.startswith("clustered"):
+                t_k = median_ms(kern, reps=10, warmup=2)
+                t_b, by = bound_ms(kname, tuple(fmap.shape), hot,
+                                   fmap.element_size())
+                timing = (f"; kernel {t_k:.4f} ms, bound {t_b:.4f} ms ({by}), "
+                          f"share {t_b / t_k:.3f}")
+            print(f"[7] {kname:18s} image, {case} {str(dtype):14s}: "
+                  f"max_abs_err {detail} ({tol}) {'ok' if ok else 'FAIL'}"
+                  f"{timing}")
+            check(ok, f"{kname} disagrees with its plain version: {case}, {dtype}")
+
+
 def phase_patch_kernels(model, dev):
     """K2, K3, K4 against their plain versions, with their bounds and
-    library calls; K3 also with its bucketing and a clustered case. Returns
-    {kernel: {err, ms, plain_ms, bound_ms, bound_by, library_ms}}, the times
-    summed over the three sites with bf16 maps (the training path's dtype)."""
-    from racformer_tpu_torch.ops import gather_kernel as gk
+    library calls; K3 also with its bucketing and a clustered case, K2 and
+    K4 with the edge cases of `gather_edge_cases`. Returns {kernel: {err,
+    ms, plain_ms, bound_ms, bound_by, library_ms}}, the times summed over the
+    three sites with bf16 maps (the training path's dtype)."""
     from racformer_tpu_torch.ops import scatter_kernel as sk
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -636,44 +740,17 @@ def phase_patch_kernels(model, dev):
         for name, fmap, pts, g, outside in train_site_cases(model, gen, dtype, dev):
             shape = tuple(fmap.shape)
             es = fmap.element_size()
-            runs = {
-                "patch_gather": (lambda: gk.patch_gather(fmap, *pts),
-                                 lambda: gk.patch_gather_reference(fmap, *pts)),
-                "patch_scatter": (
-                    lambda: sk.patch_scatter(g, *pts, shape),
-                    lambda: sk.patch_scatter_reference(g, *pts, shape)),
-                "patch_corner_grads": (
-                    lambda: gk.patch_corner_grads(fmap, g, *pts),
-                    lambda: gk.patch_corner_grads_reference(fmap, g, *pts)),
-            }
+            runs = patch_runs(fmap, pts, g)
             lib = library_ms(fmap, pts, g)
             for kname, (kern, plain) in runs.items():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
-                extra = ""
-                if kname == "patch_corner_grads":
-                    errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
-                    ref_max = max(b.abs().max().item() for b in want)
-                    err = max(errs)
-                    detail = f"d_wx {errs[0]:.3g}, d_wy {errs[1]:.3g}"
-                else:
-                    err = (got.float() - want.float()).abs().max().item()
-                    ref_max = want.float().abs().max().item()
-                    detail = f"{err:.3g}"
+                ok, err, detail, tol = compare(kname, got, want, dtype)
                 if kname == "patch_scatter":
-                    check(got.dtype == dtype, f"K3 returned {got.dtype}")
-                    ok, tol = map_grad_ok(got, want)
                     extra = f", largest bucket {largest_bucket(pts, shape[1])}"
-                elif kname == "patch_gather" and dtype == torch.bfloat16:
-                    # one bf16 rounding of the output in each version
-                    ok = bool(((got.float() - want.float()).abs()
-                               <= 1e-2 * ref_max + 1e-2 * want.float().abs()).all())
-                    tol = "rtol 1e-2 + atol 1e-2 max|ref|"
                 else:
-                    # f32 arithmetic on both sides; K4's shuffles sum in
-                    # another order
-                    ok = err <= 1e-5 * max(ref_max, 1.0)
-                    tol = "atol 1e-5 max(1, max|ref|)"
+                    extra = (f", every column read from device memory "
+                             f"{bound_ms(kname, shape, pts, es, reread=True)[0]:.4f} ms")
                 del got, want
                 t_k = median_ms(kern, reps=10, warmup=2)
                 t_p = median_ms(plain, reps=3, warmup=1)
@@ -715,6 +792,7 @@ def phase_patch_kernels(model, dev):
                 check(ok, f"patch_scatter disagrees with its plain version on "
                           f"clustered points, {dtype}")
                 del hot
+                gather_edge_cases(fmap, pts, g, gen)
             del runs
     for st in stats.values():
         st["bound_by"] = "/".join(sorted(st["bound_by"]))
@@ -819,52 +897,83 @@ def phase_train(cfg, dev, profile_path):
               f"their scratch) "
               f"{sum(e.device_time_total for e in backward) / 1e3:.3f} ms "
               f"device over {sum(e.count for e in backward)} calls")
-    step_k3_inputs(train_step, batches[-1], gen)
+        for label, kern in (("K2", "patch_gather_kernel"),
+                            ("K4", "corner_grads_kernel")):
+            es = [e for e in events if e.device_type == DeviceType.CUDA
+                  and kern in e.key]
+            print(f"[8]   {label} in the step: "
+                  f"{sum(e.self_device_time_total for e in es) / 1e3:.3f} ms "
+                  f"device over {sum(e.count for e in es)} launches of {kern}")
+    step_own_inputs(train_step, batches[-1], gen)
     return model, batches[0], launches, steady, step_ms[0], peak
 
 
-def step_k3_inputs(train_step, batch, gen):
-    """K3 on its own inputs from one train step (the first call at each map
-    shape), against its plain version and timed, with the row and column
-    statistics that set its work apart from phase 7's uniform points."""
+def step_own_inputs(train_step, batch, gen):
+    """K2, K3 and K4 on their own inputs from one train step (each kernel's
+    first call at each map shape), against their plain versions and timed,
+    with the statistics that set this work apart from phase 7's uniform
+    points: the largest row bucket, the share of rows with points, the
+    points in the busiest 1% of rows, the busiest column, and the share of
+    the column reads that go to distinct columns (what the bound counts;
+    the rest L2 has to absorb)."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
     from racformer_tpu_torch.ops import scatter_kernel as sk
 
-    caught, orig = {}, sk.patch_scatter
+    # kernel -> (its module, its plain version, the index of its first point
+    # input; its first argument, the map or the cotangent, has the map dtype)
+    spied = {"patch_gather": (gk, gk.patch_gather_reference, 1),
+             "patch_scatter": (sk, sk.patch_scatter_reference, 1),
+             "patch_corner_grads": (gk, gk.patch_corner_grads_reference, 2)}
+    origs = {k: getattr(mod, k) for k, (mod, _, _) in spied.items()}
+    caught = {k: {} for k in spied}
 
-    def spy(g, row, x0p, wx, wy, shape):
-        if tuple(shape) not in caught:
-            caught[tuple(shape)] = [t.clone() for t in (g, row, x0p, wx, wy)]
-        return orig(g, row, x0p, wx, wy, shape)
+    def spy(kname):
+        def call(*args):
+            shape = tuple(args[-1] if kname == "patch_scatter" else args[0].shape)
+            if shape not in caught[kname]:
+                caught[kname][shape] = [a.clone() if torch.is_tensor(a) else a
+                                        for a in args]
+            return origs[kname](*args)
+        return call
 
-    sk.patch_scatter = spy
+    for kname, (mod, _, _) in spied.items():
+        setattr(mod, kname, spy(kname))
     try:
         train_step(batch, gen)
     finally:
-        sk.patch_scatter = orig
+        for kname, (mod, _, _) in spied.items():
+            setattr(mod, kname, origs[kname])
     torch.cuda.synchronize()
-    for shape, (g, *pts) in caught.items():
-        S, R, Wp, _ = shape
-        row, x0p = pts[:2]
-        got = sk.patch_scatter(g, *pts, shape)
-        want = sk.patch_scatter_reference(g, *pts, shape)
-        ok, tol = map_grad_ok(got, want)
-        err = (got.float() - want.float()).abs().max().item()
-        del got, want
-        t_k = median_ms(lambda: sk.patch_scatter(g, *pts, shape), reps=10, warmup=2)
-        t_b, by = bound_ms("patch_scatter", shape, pts, g.element_size())
-        key = (torch.arange(S, device=row.device)[:, None] * R + row.long()).reshape(-1)
-        counts = torch.bincount(key, minlength=S * R).sort(descending=True).values
-        cols = torch.bincount(x0p.reshape(-1).long(), minlength=Wp)
-        n = key.numel()
-        print(f"[8] K3 on the step's inputs, map {shape} K={row.shape[1]} {g.dtype}: "
-              f"max_abs_err {err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
-              f"{t_k:.4f} ms, bound {t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; "
-              f"largest bucket {counts[0].item()}, rows with points "
-              f"{(counts > 0).float().mean().item():.3f}, points in the busiest 1% "
-              f"of rows {counts[:max(1, S * R // 100)].sum().item() / n:.3f}, "
-              f"busiest column {cols.argmax().item()} with "
-              f"{cols.max().item() / n:.3f} of the points")
-        check(ok, f"K3 disagrees with its plain version on the step's inputs {shape}")
+    labels = {"patch_gather": "K2", "patch_scatter": "K3", "patch_corner_grads": "K4"}
+    for kname, (_, plain, first) in spied.items():
+        for shape, args in caught[kname].items():
+            S, R, Wp, _ = shape
+            pts = args[first:first + 4]
+            row, x0p = pts[:2]
+            dtype = args[0].dtype
+            kern = functools.partial(origs[kname], *args)
+            ok, err, detail, tol = compare(kname, kern(), plain(*args), dtype,
+                                           floor=0.0)
+            t_k = median_ms(kern, reps=10, warmup=2)
+            t_b, by = bound_ms(kname, shape, pts, args[0].element_size())
+            key = (torch.arange(S, device=row.device)[:, None] * R
+                   + row.long()).reshape(-1)
+            counts = torch.bincount(key, minlength=S * R).sort(descending=True).values
+            cols = torch.bincount(x0p.reshape(-1).long(), minlength=Wp)
+            n = key.numel()
+            print(f"[8] {labels[kname]} on the step's inputs, map {shape} "
+                  f"K={row.shape[1]} {dtype}: max_abs_err {detail} ({tol}) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, bound "
+                  f"{t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; distinct columns "
+                  f"per column read {unique_columns(shape, row, x0p) / (2 * n):.3f}, "
+                  f"largest bucket {counts[0].item()}, rows with points "
+                  f"{(counts > 0).float().mean().item():.3f}, points in the busiest "
+                  f"1% of rows {counts[:max(1, S * R // 100)].sum().item() / n:.3f}, "
+                  f"busiest column {cols.argmax().item()} with "
+                  f"{cols.max().item() / n:.3f} of the points")
+            check(ok, f"{labels[kname]} disagrees with its plain version on the "
+                      f"step's inputs {shape}")
+        caught[kname].clear()
 
 
 def grads_of(model, metrics, clip=35.0):
@@ -974,6 +1083,24 @@ def phase_train_small(dev):
           "losses 1e-4 relative, every gradient's cosine >= 0.999)")
 
 
+def flagship_model(dev):
+    """The flagship config (read with runpy), the model's arguments and the
+    model on `dev` with seeded random weights, in eval mode."""
+    from racformer_tpu_torch.model import RaCFormer, random_init_
+
+    cfg = runpy.run_path(str(CONFIG))
+    mcfg = cfg["model"]
+    kwargs = {k: mcfg[k] for k in (
+        "num_cams", "num_frames", "embed_dims", "num_query", "num_clusters",
+        "num_levels", "num_groups", "image_hw", "pc_range", "depth_bins",
+        "bev_size")}
+    kwargs["num_classes"] = len(cfg["class_names"])
+    with torch.device(dev):
+        model = RaCFormer(**kwargs, decoder=dict(cfg["decoder"]))
+    random_init_(model, torch.Generator().manual_seed(SEED)).eval()
+    return cfg, kwargs, model
+
+
 def main(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="FILE",
@@ -985,20 +1112,8 @@ def main(argv):
     args = parser.parse_args(argv)
     card = phase_card()
     dev = torch.device("cuda", 0)
-    from racformer_tpu_torch.model import RaCFormer, random_init_
-    from racformer_tpu_torch.ops import gather_kernel as gk
-
     phase_build()
-    cfg = runpy.run_path(str(CONFIG))
-    mcfg = cfg["model"]
-    kwargs = {k: mcfg[k] for k in (
-        "num_cams", "num_frames", "embed_dims", "num_query", "num_clusters",
-        "num_levels", "num_groups", "image_hw", "pc_range", "depth_bins",
-        "bev_size")}
-    kwargs["num_classes"] = len(cfg["class_names"])
-    with torch.device(dev):
-        model = RaCFormer(**kwargs, decoder=dict(cfg["decoder"]))
-    random_init_(model, torch.Generator().manual_seed(SEED)).eval()
+    cfg, kwargs, model = flagship_model(dev)
     print(f"[model] {CONFIG.relative_to(REPO)}: {kwargs['num_cams']} cams, "
           f"{kwargs['num_frames']} frames, {kwargs['image_hw']}, "
           f"Q={kwargs['num_query']}, C={kwargs['embed_dims']}, "

@@ -15,29 +15,77 @@
 //
 // What bounds it: memory, as for K2: two 2C-channel columns and C cotangents
 // read per point, two floats written. The corners never leave registers, so
-// the [S, K, 4C] corner tensor the TPU path writes and re-reads is gone. One
-// warp per point, lane l owns channels (2l, 2l + 1) of each 64-channel block
-// (bf16x2 / float2 loads, 128-byte segments per warp load); each lane sums
-// its channels in f32 and a butterfly of warp shuffles sums the lanes.
-//
-// Contract: every array is contiguous, C is even (the Python wrapper checks
-// these and raises); 0 <= row < R and 0 <= x0p <= Wp - 2 (guaranteed by the
-// samplers' clamp; not checked here).
+// the [S, K, 4C] corner tensor the TPU path writes and re-reads is gone. The
+// first design (one warp per point, 4-byte loads, a 5-step butterfly over
+// the warp for two floats) ran at a fifth to a quarter of the bound, bound
+// by latency and issue. This design walks the points as K2 does
+// (point_tiles.cuh: a lane group per point, 16-byte loads of the four
+// corner halves and of g, kInFlight points of each group in flight, a warp
+// tile of 32 points, a grid sized to the card). Each lane sums its kVec
+// channels in f32; a butterfly inside the lane group (3 shuffle steps in
+// bf16, 4 in f32) sums the group, a shuffle hands each point's sums to the
+// lane that read its inputs, and the warp stores d_wx and d_wy once per
+// tile, one coalesced 128-byte store each. The sums run in a fixed order
+// without atomics, so two runs give the same bits. On an H100 (700 W) at the
+// image site in bf16 it takes 0.37-0.42 ms against 0.82-0.84 ms for the
+// first design and 1.08-1.11 ms for a staged design, tried and removed
+// (bulk copies of each point's run into shared memory, see patch_gather.cu);
+// like K2 it moves every point's corners through L2.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "point_tiles.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using namespace point_tiles;
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+// Points each lane group keeps in flight, chosen on an H100: 8 beat 4 in
+// both dtypes (image site bf16 0.3805 against 0.4657 ms; f32 0.7584 against
+// 0.7837, BEV sites 0.3504-0.3601 against 0.3734-0.3815). It takes 254-255
+// registers, one block of 8 warps per SM.
+constexpr int kInFlight = 8;
+
+// Adds point's share of d_wx, d_wy over kVec channels to sx, sy: the corner
+// halves v00, v10, v01, v11 and the cotangent in v[0..4].
+template <typename T>
+__device__ __forceinline__ void accumulate(const uint4* v, float fx, float fy,
+                                           float& sx, float& sy) {
+  constexpr int V = Lanes<T>::kVec;
+  float v00[V], v10[V], v01[V], v11[V], gv[V];
+  to_float<T>(v[0], v00);
+  to_float<T>(v[1], v10);
+  to_float<T>(v[2], v01);
+  to_float<T>(v[3], v11);
+  to_float<T>(v[4], gv);
+  const float gx = 1.f - fx, gy = 1.f - fy;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    sx += gv[j] * ((v01[j] - v00[j]) * gy + (v11[j] - v10[j]) * fy);
+    const float top = v00[j] * gx + v01[j] * fx;
+    const float bot = v10[j] * gx + v11[j] * fx;
+    sy += gv[j] * (bot - top);
+  }
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// Sums sx, sy over the lane group (all its lanes get the sums), then hands
+// the sums of the group's point of round r to the lane that holds that
+// point's inputs (lane r * kGroups + group), which keeps them in dx, dy.
+template <typename T>
+__device__ __forceinline__ void reduce_to_owner(float sx, float sy, int r,
+                                                float& dx, float& dy) {
+  using L = Lanes<T>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = L::kPerPoint / 2; off > 0; off >>= 1) {
+    sx += __shfl_xor_sync(0xffffffffu, sx, off);
+    sy += __shfl_xor_sync(0xffffffffu, sy, off);
+  }
+  const int src = (lane % L::kGroups) * L::kPerPoint;
+  const float x = __shfl_sync(0xffffffffu, sx, src);
+  const float y = __shfl_sync(0xffffffffu, sy, src);
+  if (lane / L::kGroups == r) {
+    dx = x;
+    dy = y;
+  }
 }
 
 template <typename T>
@@ -46,42 +94,59 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) corner_grads_kernel(
     const int32_t* __restrict__ row, const int32_t* __restrict__ x0p,
     const float* __restrict__ wx, const float* __restrict__ wy,
     float* __restrict__ d_wx, float* __restrict__ d_wy, int64_t map_stride,
-    int wp, int c, int k) {
+    int wp, int c, int k, int64_t n) {
+  using L = Lanes<T>;
+  constexpr int U = kInFlight;
+  static_assert(L::kRounds % U == 0, "kInFlight must divide kRounds");
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= k) return;
-  const int s = blockIdx.y;
-  const int c2 = 2 * c;
-  const int64_t q = static_cast<int64_t>(s) * k + p;
-  const T* col0 = fused + s * map_stride +
-                  (static_cast<int64_t>(row[q]) * wp + x0p[q]) * c2;
-  const T* col1 = col0 + c2;
-  const float fx = wx[q];
-  const float gx = 1.f - fx;
-  const float fy = wy[q];
-  const float gy = 1.f - fy;
-  const T* src = g + q * c;
-  float sx = 0.f, sy = 0.f;
-  for (int cb = 2 * lane; cb < c; cb += 64) {
-    const float2 gv = load2(src + cb);
-    const float2 v00 = load2(col0 + cb);
-    const float2 v10 = load2(col0 + c + cb);
-    const float2 v01 = load2(col1 + cb);
-    const float2 v11 = load2(col1 + c + cb);
-    sx += gv.x * ((v01.x - v00.x) * gy + (v11.x - v10.x) * fy) +
-          gv.y * ((v01.y - v00.y) * gy + (v11.y - v10.y) * fy);
-    const float top0 = v00.x * gx + v01.x * fx, top1 = v00.y * gx + v01.y * fx;
-    const float bot0 = v10.x * gx + v11.x * fx, bot1 = v10.y * gx + v11.y * fx;
-    sy += gv.x * (bot0 - top0) + gv.y * (bot1 - top1);
-  }
+  const int grp = lane / L::kPerPoint;
+  const int c0 = (lane % L::kPerPoint) * L::kVec;  // this lane's first channel
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  int64_t t = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  Point mine = own_point(row, x0p, wx, wy, t * kTile + lane, n, k, map_stride,
+                         wp, 2 * c);
+  for (; t < tiles; t += step) {
+    const int64_t first = t * kTile;
+    const int count = static_cast<int>(n - first < kTile ? n - first : kTile);
+    // the next tile's point inputs, in flight while this tile samples
+    const Point next = own_point(row, x0p, wx, wy, first + step * kTile + lane,
+                                 n, k, map_stride, wp, 2 * c);
+    float dx = 0.f, dy = 0.f;  // this lane's point's sums
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sx += __shfl_xor_sync(0xffffffffu, sx, off);
-    sy += __shfl_xor_sync(0xffffffffu, sy, off);
-  }
-  if (lane == 0) {
-    d_wx[q] = sx;
-    d_wy[q] = sy;
+    for (int r0 = 0; r0 < L::kRounds; r0 += U) {
+      Point p[U];
+      float sx[U], sy[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = shfl_point(mine, (r0 + u) * L::kGroups + grp);
+        sx[u] = sy[u] = 0.f;
+      }
+      for (int cb = c0; cb < c; cb += kSpan) {
+        uint4 v[U][5];  // corners v00, v10, v01, v11, then g
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = (r0 + u) * L::kGroups + grp;
+          if (i < count) {
+            const T* col = fused + p[u].col + cb;
+#pragma unroll
+            for (int h = 0; h < 4; ++h) v[u][h] = load16(col + h * c);
+            v[u][4] = load16(g + (first + i) * c + cb);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if ((r0 + u) * L::kGroups + grp < count)
+            accumulate<T>(v[u], p[u].wx, p[u].wy, sx[u], sy[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) reduce_to_owner<T>(sx[u], sy[u], r0 + u, dx, dy);
+    }
+    if (lane < count) {
+      d_wx[first + lane] = dx;
+      d_wy[first + lane] = dy;
+    }
+    mine = next;
   }
 }
 
@@ -90,14 +155,17 @@ cudaError_t launch(const void* fused, const void* g, const void* row,
                    const void* x0p, const void* wx, const void* wy,
                    void* d_wx, void* d_wy, int s, int64_t map_stride, int wp,
                    int c, int k, cudaStream_t stream) {
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((k + kWarpsPerBlock - 1) / kWarpsPerBlock, s);
-  corner_grads_kernel<T><<<grid, block, 0, stream>>>(
+  const int64_t n = static_cast<int64_t>(s) * k;
+  int blocks = 0;
+  static int cap = 0;
+  const cudaError_t err = grid_blocks(corner_grads_kernel<T>, n, &cap, &blocks);
+  if (err != cudaSuccess || blocks == 0) return err;
+  corner_grads_kernel<T><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
       static_cast<const T*>(fused), static_cast<const T*>(g),
       static_cast<const int32_t*>(row), static_cast<const int32_t*>(x0p),
       static_cast<const float*>(wx), static_cast<const float*>(wy),
       static_cast<float*>(d_wx), static_cast<float*>(d_wy), map_stride, wp, c,
-      k);
+      k, n);
   return cudaGetLastError();
 }
 

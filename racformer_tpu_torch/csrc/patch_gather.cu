@@ -14,42 +14,62 @@
 // summed over points: the training path weights and sums the per-point
 // samples in PyTorch, where autograd sees them.
 //
-// What bounds it: memory. Each point reads two 2C-channel columns (2 x 256 B
-// in bf16 at C = 64) and writes C values, for 4 * C multiply-adds. The
-// design only makes the reads coalesced: one warp per point, lane l owns
-// output channels (2l, 2l + 1) of each 64-channel block and reads them as
-// bf16x2 (float2 for f32 maps), so each warp load is one contiguous 128-byte
-// segment of a column; the lerps run in f32 registers and the output is
-// stored once in the map dtype. The TPU kernel's 8-aligned 16-wide windows,
-// packed (row << 16) | xb words and hat-weight reductions are not needed.
+// What bounds it: memory. Each point reads two 2C-channel columns (512 B in
+// bf16 at C = 64) and writes C values, for 9 f32 operations per channel; the
+// columns a slab's points share are read from device memory once at best
+// (the bound of chip_smoke.py counts them so). The first design, one warp
+// per point with 4-byte loads and two dependent load latencies per point,
+// ran at a quarter to a third of that bound: it was bound by latency and
+// issue, not bytes (halving the bytes, bf16 against f32, barely moved it).
+// This design (point_tiles.cuh) reads each point with four 16-byte loads
+// per lane of a lane group, keeps kInFlight points of each group in flight,
+// takes the per-point inputs coalesced for a warp's tile of 32 points (the
+// next tile's while this one samples) and walks the points in order on a
+// grid sized to the card, so the warps in flight share the current slab's
+// columns in L2. The lerps run in f32 registers and the output is rounded
+// once to the map dtype and stored 16 bytes per lane, a warp store covering
+// consecutive points. On an H100 (700 W) at the image site in bf16 it takes
+// 0.33-0.34 ms against 0.60-0.63 ms for the first design. A staged design
+// was tried and removed: a producer warp copied each point's 512-byte run
+// into a shared-memory ring with cp.async.bulk on mbarriers, and it took
+// 1.04-1.06 ms, since each point is its own bulk copy and an SM completes
+// about one per 59 ns. What is left above the bound: every point's 512 B
+// still pass from L2 to an SM (the bound counts each column once from
+// device memory), 4.1-4.6 TB/s of L2 traffic at these times; at the BEV
+// sites (0.16-0.18 ms) that is about the time of reading every column from
+// device memory (0.19 ms), against a bound of 0.08 ms.
 //
-// Contract: every array is contiguous, C is even (the Python wrapper checks
-// these and raises); 0 <= row < R and 0 <= x0p <= Wp - 2 (the samplers
-// guarantee it by clamping the coordinates to [-PAD, W] before adding PAD;
-// nothing checks it here).
+// The TPU kernel's 8-aligned 16-wide windows, packed (row << 16) | xb words
+// and hat-weight reductions are not needed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "point_tiles.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+using namespace point_tiles;
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+// Points each lane group keeps in flight, chosen on an H100 at the image
+// site: in bf16 8 (0.3475 ms) beat 4 (0.3693); in f32 4 (0.7452) beat 8
+// (0.8067): with 8 a lane takes 208-218 registers against 122-126, one
+// block per SM instead of two, so no more bytes are in flight per SM.
+template <typename T>
+constexpr int kInFlight = sizeof(T) == 2 ? 8 : 4;
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+// The bilinear sample of kVec channels from the corner halves v (top and
+// bottom of column x0p, then of x0p + 1), rounded to T.
+template <typename T>
+__device__ __forceinline__ uint4 lerp(const uint4* v, float fx, float fy) {
+  constexpr int V = Lanes<T>::kVec;
+  float t0[V], b0[V], t1[V], b1[V], o[V];
+  to_float<T>(v[0], t0);
+  to_float<T>(v[1], b0);
+  to_float<T>(v[2], t1);
+  to_float<T>(v[3], b1);
+  const float gx = 1.f - fx, gy = 1.f - fy;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    o[j] = (t0[j] * gx + t1[j] * fx) * gy + (b0[j] * gx + b1[j] * fx) * fy;
+  return from_float<T>(o);
 }
 
 template <typename T>
@@ -57,28 +77,51 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) patch_gather_kernel(
     const T* __restrict__ fused, const int32_t* __restrict__ row,
     const int32_t* __restrict__ x0p, const float* __restrict__ wx,
     const float* __restrict__ wy, T* __restrict__ out, int64_t map_stride,
-    int wp, int c, int k) {
+    int wp, int c, int k, int64_t n) {
+  using L = Lanes<T>;
+  constexpr int V = L::kVec;
+  constexpr int U = kInFlight<T>;
+  static_assert(L::kRounds % U == 0, "kInFlight must divide kRounds");
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= k) return;
-  const int s = blockIdx.y;
-  const int c2 = 2 * c;
-  const int64_t q = static_cast<int64_t>(s) * k + p;
-  const T* col0 = fused + s * map_stride +
-                  (static_cast<int64_t>(row[q]) * wp + x0p[q]) * c2;
-  const T* col1 = col0 + c2;
-  const float fx = wx[q];
-  const float gx = 1.f - fx;
-  const float fy = wy[q];
-  const float gy = 1.f - fy;
-  T* dst = out + q * c;
-  for (int cb = 2 * lane; cb < c; cb += 64) {
-    const float2 t0 = load2(col0 + cb);
-    const float2 b0 = load2(col0 + c + cb);
-    const float2 t1 = load2(col1 + cb);
-    const float2 b1 = load2(col1 + c + cb);
-    store2(dst + cb, (t0.x * gx + t1.x * fx) * gy + (b0.x * gx + b1.x * fx) * fy,
-           (t0.y * gx + t1.y * fx) * gy + (b0.y * gx + b1.y * fx) * fy);
+  const int grp = lane / L::kPerPoint;
+  const int c0 = (lane % L::kPerPoint) * V;  // this lane's first channel
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  int64_t t = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+  Point mine = own_point(row, x0p, wx, wy, t * kTile + lane, n, k, map_stride,
+                         wp, 2 * c);
+  for (; t < tiles; t += step) {
+    const int64_t first = t * kTile;
+    const int count = static_cast<int>(n - first < kTile ? n - first : kTile);
+    // the next tile's point inputs, in flight while this tile samples
+    const Point next = own_point(row, x0p, wx, wy, first + step * kTile + lane,
+                                 n, k, map_stride, wp, 2 * c);
+#pragma unroll
+    for (int r0 = 0; r0 < L::kRounds; r0 += U) {
+      Point p[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        p[u] = shfl_point(mine, (r0 + u) * L::kGroups + grp);
+      for (int cb = c0; cb < c; cb += kSpan) {
+        uint4 v[U][4];  // top / bottom of column x0p, then x0p + 1
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if ((r0 + u) * L::kGroups + grp < count) {
+            const T* col = fused + p[u].col + cb;
+#pragma unroll
+            for (int h = 0; h < 4; ++h) v[u][h] = load16(col + h * c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = (r0 + u) * L::kGroups + grp;
+          if (i < count)
+            *reinterpret_cast<uint4*>(out + (first + i) * c + cb) =
+                lerp<T>(v[u], p[u].wx, p[u].wy);
+        }
+      }
+    }
+    mine = next;
   }
 }
 
@@ -87,13 +130,16 @@ cudaError_t launch(const void* fused, const void* row, const void* x0p,
                    const void* wx, const void* wy, void* out, int s,
                    int64_t map_stride, int wp, int c, int k,
                    cudaStream_t stream) {
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((k + kWarpsPerBlock - 1) / kWarpsPerBlock, s);
-  patch_gather_kernel<T><<<grid, block, 0, stream>>>(
+  const int64_t n = static_cast<int64_t>(s) * k;
+  int blocks = 0;
+  static int cap = 0;
+  const cudaError_t err = grid_blocks(patch_gather_kernel<T>, n, &cap, &blocks);
+  if (err != cudaSuccess || blocks == 0) return err;
+  patch_gather_kernel<T><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(
       static_cast<const T*>(fused), static_cast<const int32_t*>(row),
       static_cast<const int32_t*>(x0p), static_cast<const float*>(wx),
       static_cast<const float*>(wy), static_cast<T*>(out), map_stride, wp, c,
-      k);
+      k, n);
   return cudaGetLastError();
 }
 

@@ -3,9 +3,9 @@
 which `ctypes` loads (`KERNELS` lists them with their entry points).
 
 The library goes to `build/racformer_tpu_torch/` in the repository root and
-is named by a hash of its sources and flags, so an edited source rebuilds
-and an unchanged one loads the library already built. A build failure
-raises; there is no fallback.
+is named by a hash of its sources, the `csrc/` headers they include and the
+flags, so an edited source or header rebuilds and an unchanged one loads the
+library already built. A build failure raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -65,7 +66,11 @@ def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         return _loaded[name]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
-        digest.update((CSRC / src).read_bytes())
+        text = (CSRC / src).read_bytes()
+        digest.update(text)
+        # the csrc headers it includes (they include none of their own)
+        for header in re.findall(rb'#include "([^"]+)"', text):
+            digest.update((CSRC / header.decode()).read_bytes())
     lib_path = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -97,6 +97,22 @@ def check_points(name, shape, row, x0p, wx, wy):
                              f"{tuple(t.shape)}")
 
 
+def check_vector_loads(name, fused, *more):
+    """Raise unless K2 / K4 can read `fused` (and the [S, K, C] tensors
+    `more`) 16 bytes per lane: C a multiple of the channels in 16 bytes (8
+    in bf16, 4 in f32) and every pointer 16-byte aligned (see
+    `csrc/point_tiles.cuh`)."""
+    vec = 16 // fused.element_size()
+    C = fused.shape[-1] // 2
+    if C % vec:
+        raise ValueError(f"{name}: C={C} must be a multiple of {vec} for a "
+                         f"{fused.dtype} map (16-byte loads)")
+    for t in (fused, *more):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: a tensor at {t.data_ptr():#x} is not "
+                             f"16-byte aligned (16-byte loads)")
+
+
 def current_stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -194,7 +210,8 @@ def patch_gather_reference(fused, row, x0p, wx, wy):
 
 def patch_gather(fused, row, x0p, wx, wy):
     """K2: see `patch_gather_reference`. On CUDA the inputs must be
-    contiguous, the map float32 or bfloat16, row / x0p int32 and wx / wy
+    contiguous, the map float32 or bfloat16 at a 16-byte aligned address
+    with C a multiple of 8 (bf16) or 4 (f32), row / x0p int32 and wx / wy
     float32, with 0 <= row < R and 0 <= x0p <= Wp - 2."""
     global GATHER_LAUNCHES
     check_points("patch_gather", fused.shape, row, x0p, wx, wy)
@@ -204,6 +221,7 @@ def patch_gather(fused, row, x0p, wx, wy):
     code = dtype_code("patch_gather", fused.dtype)
     check_cuda_inputs("patch_gather", (fused, row, x0p, wx, wy),
                       (fused.dtype, i32, i32, f32, f32))
+    check_vector_loads("patch_gather", fused)
     S, R, Wp, C2 = fused.shape
     K = row.shape[1]
     out = torch.empty((S, K, C2 // 2), dtype=fused.dtype, device=fused.device)
@@ -237,7 +255,8 @@ def patch_corner_grads_reference(fused, g, row, x0p, wx, wy):
 
 def patch_corner_grads(fused, g, row, x0p, wx, wy):
     """K4: see `patch_corner_grads_reference`. On CUDA g has the map's
-    dtype and every input is contiguous, as for `patch_gather`."""
+    dtype, is contiguous and 16-byte aligned, and the other inputs are as
+    for `patch_gather`."""
     global CORNER_LAUNCHES
     check_points("patch_corner_grads", fused.shape, row, x0p, wx, wy)
     S, R, Wp, C2 = fused.shape
@@ -251,6 +270,7 @@ def patch_corner_grads(fused, g, row, x0p, wx, wy):
     code = dtype_code("patch_corner_grads", fused.dtype)
     check_cuda_inputs("patch_corner_grads", (fused, g, row, x0p, wx, wy),
                       (fused.dtype, fused.dtype, i32, i32, f32, f32))
+    check_vector_loads("patch_corner_grads", fused, g)
     d_wx = torch.empty((S, K), dtype=f32, device=fused.device)
     d_wy = torch.empty((S, K), dtype=f32, device=fused.device)
     launch("patch_corner_grads", code, fused.data_ptr(), g.data_ptr(),

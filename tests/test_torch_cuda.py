@@ -218,6 +218,74 @@ def test_patch_scatter_is_repeatable(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,K,C", [(1, 1, 64), (3, 31, 64), (2, 32, 64),
+                                   (3, 33, 64), (1, 1057, 128), (2, 77, 8),
+                                   (2, 45, 24), (3, 70, 72), (8, 100000, 64)])
+def test_gather_kernels_tiling_tails(cuda, dtype, S, K, C):
+    """K2 and K4 against their plain versions where the point tiling of
+    `csrc/point_tiles.cuh` has edges: a last warp tile of 1, 31, 32 or 33
+    points of the flattened S x K, channel counts below one lane group's 64
+    (idle lanes) and past it (a second, partial pass), and more tiles than
+    the grid has warps."""
+    fused, row, x0p, wx, wy, g = _points(cuda, dtype, S=S, C=C, K=K)
+    out = gather_kernel.patch_gather(fused, row, x0p, wx, wy)
+    dwx, dwy = gather_kernel.patch_corner_grads(fused, g, row, x0p, wx, wy)
+    torch.cuda.synchronize()
+    want = gather_kernel.patch_gather_reference(fused, row, x0p, wx, wy)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    else:
+        bound = 1e-2 * want.float().abs().max().item()
+        torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+                                   atol=bound)
+    for got, ref in zip((dwx, dwy), gather_kernel.patch_corner_grads_reference(
+            fused, g, row, x0p, wx, wy)):
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_kernels_refuse_what_16_byte_loads_cannot_take(cuda, dtype):
+    """K2 and K4 read 16 bytes per lane: a contiguous map or cotangent view
+    at a storage offset that is not 16-byte aligned, or a C that is not a
+    multiple of 16 bytes' channels (8 bf16, 4 f32), raises rather than
+    falling back, and launches nothing."""
+    fused, row, x0p, wx, wy, g = _points(cuda, dtype, K=100)
+    counts = (gather_kernel.GATHER_LAUNCHES, gather_kernel.CORNER_LAUNCHES)
+    shifted = torch.empty(fused.numel() + 1, dtype=dtype, device=cuda)[1:]
+    shifted = shifted.view(fused.shape).copy_(fused)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_kernel.patch_gather(shifted, row, x0p, wx, wy)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_kernel.patch_corner_grads(shifted, g, row, x0p, wx, wy)
+    g_shifted = torch.empty(g.numel() + 1, dtype=dtype, device=cuda)[1:]
+    g_shifted = g_shifted.view(g.shape).copy_(g)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_kernel.patch_corner_grads(fused, g_shifted, row, x0p, wx, wy)
+    C = 60 if dtype == torch.bfloat16 else 62  # even, not a multiple of 8 / 4
+    narrow, row, x0p, wx, wy, g = _points(cuda, dtype, C=C, K=100)
+    with pytest.raises(ValueError, match="multiple of"):
+        gather_kernel.patch_gather(narrow, row, x0p, wx, wy)
+    with pytest.raises(ValueError, match="multiple of"):
+        gather_kernel.patch_corner_grads(narrow, g, row, x0p, wx, wy)
+    assert (gather_kernel.GATHER_LAUNCHES, gather_kernel.CORNER_LAUNCHES) == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corner_grads_are_repeatable(cuda, dtype):
+    """K4 sums each point's channels in a fixed order (per lane, then the
+    lane group's butterfly) without atomics: two runs are bitwise equal."""
+    fused, row, x0p, wx, wy, g = _points(cuda, dtype, K=30000)
+    runs = [gather_kernel.patch_corner_grads(fused, g, row, x0p, wx, wy)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
 def test_patch_sample_grads_on_card(cuda):
     """`PatchSample` forward and backward on the card against the same
     function on the CPU (plain versions)."""

@@ -47,26 +47,59 @@ def _pixels(rng, shape, extent):
     x = rng.uniform(-2.5, extent + 1.5, size=shape)
     far = rng.uniform(size=shape) < 0.1
     x[far] = rng.choice([-400.0, -9.0, extent + 7.0, 3000.0], size=int(far.sum()))
-    x[..., :4] = [-1.0, -0.5, extent - 1.0, float(extent)]
+    edge = [-1.0, -0.5, extent - 1.0, float(extent)][:shape[-1]]
+    x[..., :len(edge)] = edge
     x[..., 4:10] = np.round(x[..., 4:10])
     return x.astype(np.float32)
 
 
+def _outside(rng, shape, extent):
+    """Pixel coordinates off the map on both sides, near and far, the
+    first four exactly on the -1 edge: every sample reads only the zero
+    border (an edge point weights its in-map corner by 0), and the edge
+    points still carry location gradients."""
+    x = np.where(rng.uniform(size=shape) < 0.5, rng.uniform(-3.0, -1.0, shape),
+                 rng.uniform(extent, extent + 2.0, shape))
+    far = rng.uniform(size=shape) < 0.1
+    x[far] = rng.choice([-400.0, extent + 7.0], size=int(far.sum()))
+    x[..., :4] = -1.0
+    return x.astype(np.float32)
+
+
+def _layout(rng, layout, S, J, K, H, W):
+    """(view, x, y) of K points per slab. mixed: uniform views, points in
+    the map, on its border, on integer pixels and far outside; outside:
+    every point off the map in x; clustered: every point of a slab in one
+    fused row (view 0, y in [4, 5)) and three columns."""
+    if layout == "clustered":
+        view = np.repeat(np.arange(S)[:, None] * J, K, axis=1)
+        x = rng.integers(3, 6, (S, K)) + rng.uniform(size=(S, K))
+        y = rng.uniform(4.0, 5.0, (S, K))
+        return view.astype(np.int32), x.astype(np.float32), y.astype(np.float32)
+    view = np.arange(S)[:, None] * J + rng.integers(0, J, (S, K))
+    x = (_outside if layout == "outside" else _pixels)(rng, (S, K), W)
+    return view.astype(np.int32), x, _pixels(rng, (S, K), H)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("K", [37, 5000])
-def test_patch_sample_matches_jax_custom_vjp(dtype, K, monkeypatch):
+@pytest.mark.parametrize("K,layout", [
+    pytest.param(37, "mixed", id="37"), pytest.param(5000, "mixed", id="5000"),
+    pytest.param(1, "mixed", id="1"),
+    pytest.param(300, "outside", id="300-outside"),
+    pytest.param(2000, "clustered", id="2000-clustered")])
+def test_patch_sample_matches_jax_custom_vjp(dtype, K, layout, monkeypatch):
     """Forward and the gradients for the map, x and y (through wx / wy)
     against `bilinear_sample_views_nhwc` on the JAX custom-VJP path with the
     Pallas forward; K=5000 spans two gather chunks and five scatter chunks
-    of the JAX kernels. K3 returns the map gradient in the map's dtype."""
+    of the JAX kernels, K=1 is one point per slab. The outside layout samples
+    only the zero border; the clustered one puts a slab's 2000 points into
+    one fused row, the hot row the gather kernels read from L2 and K3 cuts
+    over several tiles. K3 returns the map gradient in the map's dtype."""
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.default_rng(K)
     S, J, H, W, C = 2, 2, 9, 21, 64
     feat = rng.normal(size=(S * J, H, W, C)).astype(np.float32)
-    view = (np.arange(S)[:, None] * J + rng.integers(0, J, (S, K))).astype(
-        np.int32)
-    x = _pixels(rng, (S, K), W)
-    y = _pixels(rng, (S, K), H)
+    view, x, y = _layout(rng, layout, S, J, K, H, W)
     g = rng.normal(size=(S, K, C)).astype(np.float32)
 
     def jax_fn(f, xx, yy):
@@ -94,8 +127,11 @@ def test_patch_sample_matches_jax_custom_vjp(dtype, K, monkeypatch):
     close(got.detach(), want, tol, "out")
     for t, w, n in zip((ft, xt, yt), want_grads, ("d_feat", "d_x", "d_y")):
         close(t.grad, w, tol, n)
-    # the border points sample zeros but still carry location gradients
-    assert np.abs(np.asarray(want_grads[1])[:, :4]).max() > 0
+    if layout == "outside":
+        assert not got.detach().abs().max() and not np.abs(np.asarray(want)).max()
+    if layout != "clustered" and K >= 4:
+        # the border points sample zeros but still carry location gradients
+        assert np.abs(np.asarray(want_grads[1])[:, :4]).max() > 0
 
 
 def test_patch_sample_integer_inputs_get_no_gradient():
