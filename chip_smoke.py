@@ -13,12 +13,18 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. building the CUDA kernels K1-K4 (csrc/*.cu) from this checkout, one nvcc
      per source, all at once;
   3. K1 against its plain PyTorch version at the three decoder sites' flagship
-     shapes, f32 and bf16 maps, ~20% of the points outside the map;
+     shapes, f32 and bf16 maps, ~20% of the points outside the map, each
+     with its time and bound; K1 on the edges of its walk at the image site
+     (one output per slab, a ragged tile, folds 1, 3, 5 and 33, the last
+     column and row, every point on the zero border, zero weights, the
+     clustered points);
   4. the streaming eval path: the flagship model of
      racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py with seeded
      random weights, fed seeded synthetic ring-camera frames through
      `StreamingEvaluator.step`; K1 must launch 18 times per step (3 sites x 6
-     decoder iterations);
+     decoder iterations); K1 on one step's own inputs at each site (their
+     alignment, against the plain version, timed, the distinct-column
+     share); with --profile, K1's device ms in the step by kernel name;
   5. the last window decoded again with K1 routed to the plain version;
   6. a small config run on the card (kernel) and on the CPU (plain version);
   7. K2, K3 and K4 against their plain versions at the training path's
@@ -57,6 +63,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import re
 import runpy
 import statistics
 import subprocess
@@ -250,9 +257,68 @@ def phase_build():
     print(f"[2] built K1-K4 ({sources}; sm_90a, one nvcc each, in parallel) "
           f"in {secs:.2f} s")
     for name, log in cuda_lib.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[2] ptxas {name}: {line.strip()}")
+        for line in ptxas_report(log, name in POINT_TILE_KERNELS):
+            print(f"[2] ptxas {name} {line}")
+
+
+def ptxas_report(log, point_tiles):
+    """The register and spill lines of nvcc's `-Xptxas -v` output, each
+    after its kernel's name (name<type>); for a point-tile kernel with the
+    blocks per SM its registers allow."""
+    entry, lines = "?", []
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = kernel_name(m.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        occupancy = ""
+        if regs and point_tiles:
+            occupancy = (f"; blocks of 256 threads per SM by registers: "
+                         f"{blocks_by_registers(int(regs.group(1)))}")
+        if regs or "spill" in line:
+            lines.append(f"{entry}: {line.strip()}{occupancy}")
+    return lines
+
+
+# the kernels of csrc/point_tiles.cuh: blocks of 8 warps, no shared memory,
+# so registers alone set how many blocks an SM holds
+POINT_TILE_KERNELS = ("gather_fold", "patch_gather", "patch_corner_grads")
+
+
+def kernel_name(mangled):
+    """name<type> of a mangled kernel template name (_ZN, then <length><name>
+    for each enclosing namespace and the kernel, then I<type>E), else the
+    mangled name's first 60 characters."""
+    rest, names = mangled[3:] if mangled.startswith("_ZN") else "", []
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        end = len(digits) + int(digits)
+        names.append(rest[len(digits):end])
+        rest = rest[end:]
+    for prefix, dtype in (("IfE", "float"), ("I13__nv_bfloat16E", "bf16")):
+        if names and rest.startswith(prefix):
+            return f"{names[-1]}<{dtype}>"
+    return mangled[:60]
+
+
+def blocks_by_registers(regs, warps=8):
+    """Blocks of `warps` warps that fit an SM's 65,536 registers at `regs`
+    per thread (allocated per warp in units of 256), at most 64 warps."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(64, 65536 // per_warp) // warps
+
+
+def fold_ok(got, want):
+    """K1 against its plain version: (ok, max abs error, tolerance). f32:
+    the same f32 arithmetic, the fold sum in another order, atol 1e-5; bf16:
+    one output rounding each, rtol 1e-2 + atol 1e-2 max|ref|."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if got.dtype == torch.float32:
+        return err <= 1e-5, err, "atol 1e-5"
+    atol = 1e-2 * want.float().abs().max().item()
+    return (bool((diff <= atol + 1e-2 * want.float().abs()).all()), err,
+            f"rtol 1e-2 + atol {atol:.3g} (1e-2 max|ref|)")
 
 
 def phase_kernel(model, dev):
@@ -265,16 +331,8 @@ def phase_kernel(model, dev):
             got = gk.patch_sample_fold(fmap, *pts, fold)
             want = gk.patch_sample_fold_reference(fmap, *pts, fold)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref_max = want.float().abs().max().item()
-            if dtype == torch.float32:
-                ok = err <= 1e-5
-                tol = "atol 1e-5"
-            else:
-                atol = 1e-2 * ref_max
-                ok = bool(((got.float() - want.float()).abs()
-                           <= atol + 1e-2 * want.float().abs()).all())
-                tol = f"rtol 1e-2 + atol {atol:.3g} (1e-2 max|ref|)"
+            ok, err, tol = fold_ok(got, want)
+            del got, want
             t_k = median_ms(lambda: gk.patch_sample_fold(fmap, *pts, fold))
             t_p = median_ms(lambda: gk.patch_sample_fold_reference(
                 fmap, *pts, fold), reps=5, warmup=1)
@@ -292,13 +350,72 @@ def phase_kernel(model, dev):
                 plain_ms += t_p
                 bound += t_b
                 bound_by.add(by)
+            if name == "image":
+                fold_edge_cases(fmap, pts, fold, gen)
     return max(errs), ms, plain_ms, bound, "/".join(sorted(bound_by))
+
+
+def fold_edge_cases(fmap, pts, fold, gen):
+    """K1 against its plain version on the edges of its walk
+    (csrc/gather_fold.cu), on the image site's map: one output per slab,
+    outputs that leave a ragged warp tile, other folds (1, 3, 5, and 33,
+    whose outputs span two windows of 32 points), points at the last column
+    and the last row, every point on the zero border (exactly zero), points
+    of zero weight, and clustered points (timed)."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    S, R, Wp, _ = fmap.shape
+    row, x0p, wx, wy, wl = pts
+    K, dev = row.shape[1], row.device
+    idx = torch.arange(K, device=dev)
+    border = torch.tensor([0, Wp - 2], dtype=torch.int32, device=dev)
+
+    def first(k, slabs=S):
+        return fmap[:slabs], [t[:slabs, :k] for t in pts]
+
+    cases = {
+        f"K = fold = {fold}": (*first(fold), fold),
+        f"3 slabs, K / fold = 11 (33 outputs: 4 tiles of 8 and 1)":
+            (*first(11 * fold, 3), fold),
+        "last column (x0p = Wp - 2) and last row (row = R - 1)": (
+            fmap, [torch.where(idx % 3 == 0, R - 1, row),
+                   torch.where(idx % 2 == 0, Wp - 2, x0p), wx, wy, wl], fold),
+        "all outside (x0p in 0, Wp - 2: zero border)": (
+            fmap, [row, border[idx % 2].expand(S, K), wx, wy, wl], fold),
+        "wl = 0 on every other point": (
+            fmap, [row, x0p, wx, wy, torch.where(idx % 2 == 0, 0.0, wl)], fold),
+        "clustered (90% of the points in 5% of the rows)": (
+            fmap, [clustered(row, R, gen), x0p, wx, wy, wl], fold),
+    }
+    for f in (1, 3, 5, 33):
+        cases[f"fold = {f}"] = (*first(K // f * f), f)
+    for case, (m, hot, f) in cases.items():
+        hot = [t.to(torch.int32 if i < 2 else torch.float32).contiguous()
+               for i, t in enumerate(hot)]
+        want = gk.patch_sample_fold_reference(m, *hot, f)
+        got = gk.patch_sample_fold(m, *hot, f)
+        ok, err, tol = fold_ok(got, want)
+        if case.startswith("all outside"):
+            check(not want.any(), "K1's plain version is not zero on the zero border")
+            ok = ok and not got.any()
+            tol = "exactly zero"
+        timing = ""
+        if case.startswith("clustered"):
+            t_k = median_ms(lambda: gk.patch_sample_fold(m, *hot, f), reps=10,
+                            warmup=2)
+            t_b, by = bound_ms("gather_fold", tuple(m.shape), hot,
+                               m.element_size(), f)
+            timing = (f"; kernel {t_k:.4f} ms, bound {t_b:.4f} ms ({by}), "
+                      f"share {t_b / t_k:.3f}")
+        print(f"[3] K1 image, {case} {str(m.dtype):14s}: max_abs_err {err:.3g} "
+              f"({tol}) {'ok' if ok else 'FAIL'}{timing}")
+        check(ok, f"K1 disagrees with its plain version: {case}, {m.dtype}")
 
 
 def phase_main(model, dev, profile_path):
     from racformer_tpu_torch.eval import StreamingEvaluator
+    from racformer_tpu_torch.ops import deform_attn, msmv, sampling
     from racformer_tpu_torch.ops import gather_kernel as gk
-    from racformer_tpu_torch.ops import sampling
 
     frames = ring_frames(model, STEPS + 4, 1536, SEED)
     ev = StreamingEvaluator(model)
@@ -334,27 +451,71 @@ def phase_main(model, dev, profile_path):
     print(f"[4] peak device memory (max_memory_allocated): {peak} B "
           f"({peak / 2**30:.2f} GiB)")
 
-    # share of image sample points that some camera sees, on one more step
-    seen = []
+    # on one more step: the share of image sample points that some camera
+    # sees, and K1's inputs at each site in the first decoder iteration
+    seen, caught = [], {}
     orig = sampling.project_points_to_views
+    folds = {mod: mod.patch_sample_fold for mod in (msmv, deform_attn)}
 
     def recording(points, lidar2img, h, w, eps=1e-5):
         x, y, view = orig(points, lidar2img, h, w, eps)
         seen.append(((x > 0) & (x < 1) & (y > 0) & (y < 1)).float().mean().item())
         return x, y, view
 
+    def spy(*args):  # per iteration: radar BEV, LSS BEV, then the image site
+        site = ("radar_bev", "lss_bev", "image")[len(caught)] if len(caught) < 3 else None
+        if site:  # the inputs' addresses as the step made them, and a copy
+            caught[site] = ([a.data_ptr() for a in args[:6]],
+                            [a.clone() if torch.is_tensor(a) else a for a in args])
+        return gk.patch_sample_fold(*args)
+
     sampling.project_points_to_views = recording
+    for mod in folds:
+        mod.patch_sample_fold = spy
     try:
         ev.step(frames[STEPS], blocking=False)
     finally:
         sampling.project_points_to_views = orig
+        for mod, fn in folds.items():
+            mod.patch_sample_fold = fn
     print(f"[4] in-view share of image sample points per decoder iteration: "
           f"{', '.join(f'{s:.3f}' for s in seen)}")
     check(min(seen) > 0.05, "image sample points are (almost) never in view")
+    step_fold_inputs(caught)
 
     if profile_path:
         profile_steps(ev, frames[STEPS + 1:STEPS + 4], steady, profile_path)
     return ev, steady, peak, launches
+
+
+def step_fold_inputs(caught):
+    """K1 on its own inputs from one eval step's first decoder iteration, at
+    each site: the maps' 16-byte alignment (the wrapper raises on others),
+    the kernel against its plain version, timed, and the share of the
+    column reads that go to distinct columns (what the bound counts)."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    for site, (ptrs, args) in caught.items():
+        fmap, pts, fold = args[0], args[1:6], args[6]
+        shape = tuple(fmap.shape)
+        check(all(ptr % 16 == 0 for ptr in ptrs),
+              f"K1's inputs at the {site} site are not 16-byte aligned")
+        kern = functools.partial(gk.patch_sample_fold, *args)
+        ok, err, tol = fold_ok(kern(), gk.patch_sample_fold_reference(*args))
+        t_k = median_ms(kern, reps=10, warmup=2)
+        t_p = median_ms(lambda: gk.patch_sample_fold_reference(*args), reps=3,
+                        warmup=1)
+        t_b, by = bound_ms("gather_fold", shape, pts, fmap.element_size(), fold)
+        n = pts[0].numel()
+        print(f"[4] K1 on the step's inputs, {site} map {shape} {fmap.dtype} "
+              f"K={pts[0].shape[1]} fold={fold}, map at {ptrs[0]:#x} "
+              f"(16-byte aligned): max_abs_err {err:.3g} ({tol}) "
+              f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} "
+              f"ms, bound {t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; distinct "
+              f"columns per column read "
+              f"{unique_columns(shape, pts[0], pts[1]) / (2 * n):.3f}")
+        check(ok, f"K1 disagrees with its plain version on the step's {site} "
+                  f"inputs")
 
 
 def profiled(fn, runs):
@@ -389,6 +550,8 @@ def host_ms(fn, runs=5):
 def profile_steps(ev, frames, steady_ms, path):
     """Device time of whole steps and of the two stages, against host time;
     the op table goes to `path`."""
+    from torch.autograd import DeviceType
+
     from racformer_tpu_torch.model import preprocess_images
 
     it = iter(frames)
@@ -408,6 +571,12 @@ def profile_steps(ev, frames, steady_ms, path):
               f"{e.count // 3:5d} calls/step  {e.key}")
     print(f"[4]   aten ops launched per step: "
           f"{sum(e.count for e in events if e.key.startswith('aten::')) // 3}")
+    k1 = [e for e in events if e.device_type == DeviceType.CUDA
+          and "gather_fold_kernel" in e.key]
+    print(f"[4]   K1 in the step: "
+          f"{sum(e.self_device_time_total for e in k1) / 3e3:.3f} ms/step device "
+          f"over {sum(e.count for e in k1) // 3} launches/step of "
+          f"gather_fold_kernel, beside device busy {busy:.2f} ms/step")
 
     # the two stages on the cached window: encode_frame, decode_window
     model, dev = ev.model, ev.device

@@ -1,29 +1,33 @@
-// Point tiles for the training samplers' per-point kernels on sm_90a: K2
-// (patch_gather.cu) and K4 (patch_corner_grads.cu).
+// Point tiles for the per-point kernels on sm_90a: the training samplers'
+// K2 (patch_gather.cu) and K4 (patch_corner_grads.cu), and the eval path's
+// fold gather K1 (gather_fold.cu).
 //
-// Both read, for every point, the two adjacent columns x0p and x0p + 1 of
+// Each reads, for every point, the two adjacent columns x0p and x0p + 1 of
 // one fused row of the y-fused map F [S, R, Wp, 2C]: 4C contiguous values
 // (512 B in bf16 at C = 64). How they walk the points:
 //
-//   * 16-byte loads. A group of lanes serves one point, each lane 16 bytes
-//     (kVec channels) of each of the four corner halves: 8 lanes in bf16, 16
-//     in f32 cover 64 channels (kSpan); a wider C takes more passes. One
-//     warp load instruction reads 32 / kPerPoint points' 128-byte runs.
-//   * A tile of 32 points per warp. Each lane reads one point's row, x0p, wx
-//     and wy (coalesced), turns them into the column's offset in the map and
-//     hands them to the lane group that samples the point by __shfl_sync, so
-//     no map load waits on a dependent index load of its own.
+//   * 16-byte loads. A group of lanes serves one point (K1: one output, its
+//     fold points in turn), each lane 16 bytes (kVec channels) of each of
+//     the four corner halves: 8 lanes in bf16, 16 in f32 cover 64 channels
+//     (kSpan); a wider C takes more passes. One warp load instruction reads
+//     32 / kPerPoint points' 128-byte runs.
+//   * A tile of 32 points per warp (K1: whole fold groups, at most 32
+//     points). Each lane reads one point's inputs (coalesced), turns them
+//     into the column's offset in the map and hands them to the lane group
+//     that samples the point by __shfl_sync, so no map load waits on a
+//     dependent index load of its own.
 //   * kInFlight points per lane group in flight (set by each kernel): every
 //     map load of that many points is issued before any arithmetic on them.
 //   * A grid sized to the card: as many blocks as stay resident on all SMs
-//     (fewer if the points need fewer), each warp striding over the tiles of
+//     (fewer if the tiles need fewer), each warp striding over the tiles of
 //     the flattened S x K points in order, so the warps in flight work on
 //     neighbouring points of one or two slabs and share the map columns
 //     those slabs hold in L2. The ragged last tile is masked.
 //
-// Contract (the Python wrappers check the first three and raise): every
-// array is contiguous, the map and any [S, K, C] input lie at 16-byte
-// aligned addresses, C is a multiple of kVec (8 in bf16, 4 in f32);
+// Contract (the Python wrappers check the first three and raise; they
+// allocate the outputs, aligned): every array is contiguous, the map and
+// any [S, K, C] input or output lie at 16-byte aligned addresses, C is a
+// multiple of kVec (8 in bf16, 4 in f32);
 // 0 <= row < R and 0 <= x0p <= Wp - 2 (the samplers' clamp; unchecked).
 
 #pragma once
@@ -39,8 +43,8 @@ constexpr int kTile = 32;  // points per warp tile, one per lane
 constexpr int kSpan = 64;  // channels a lane group covers in one pass
 
 // The points each lane group keeps in flight are the kernel's own choice
-// (kInFlight in patch_gather.cu and patch_corner_grads.cu); it must divide
-// kRounds.
+// (kInFlight in each kernel's source); in patch_gather.cu and
+// patch_corner_grads.cu it must divide kRounds.
 template <typename T>
 struct Lanes {
   static constexpr int kVec = 16 / sizeof(T);     // channels per 16-byte load
@@ -128,11 +132,12 @@ __device__ __forceinline__ Point shfl_point(const Point& p, int src) {
           __shfl_sync(0xffffffffu, p.wy, src)};
 }
 
-// Blocks of the grid for n points: the resident capacity of the card (every
-// SM full at the kernel's occupancy), or fewer if the tiles need fewer.
-// `cap` caches the capacity across calls (one card per process).
+// Blocks of the grid for `tiles` warp tiles: the resident capacity of the
+// card (every SM full at the kernel's occupancy), or fewer if the tiles
+// need fewer. `cap` caches the capacity across calls (one card per process).
 template <typename Kernel>
-cudaError_t grid_blocks(Kernel kernel, int64_t n, int* cap, int* blocks) {
+cudaError_t grid_blocks_for_tiles(Kernel kernel, int64_t tiles, int* cap,
+                                  int* blocks) {
   if (*cap == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -144,10 +149,15 @@ cudaError_t grid_blocks(Kernel kernel, int64_t n, int* cap, int* blocks) {
     if (err != cudaSuccess) return err;
     *cap = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const int64_t tiles = (n + kTile - 1) / kTile;
   const int64_t need = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
   *blocks = static_cast<int>(need < *cap ? need : *cap);
   return cudaSuccess;
+}
+
+// The same for n points in tiles of kTile.
+template <typename Kernel>
+cudaError_t grid_blocks(Kernel kernel, int64_t n, int* cap, int* blocks) {
+  return grid_blocks_for_tiles(kernel, (n + kTile - 1) / kTile, cap, blocks);
 }
 
 }  // namespace point_tiles

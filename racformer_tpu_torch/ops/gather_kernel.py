@@ -98,10 +98,11 @@ def check_points(name, shape, row, x0p, wx, wy):
 
 
 def check_vector_loads(name, fused, *more):
-    """Raise unless K2 / K4 can read `fused` (and the [S, K, C] tensors
+    """Raise unless K1, K2 or K4 can read `fused` (and the [S, K, C] tensors
     `more`) 16 bytes per lane: C a multiple of the channels in 16 bytes (8
     in bf16, 4 in f32) and every pointer 16-byte aligned (see
-    `csrc/point_tiles.cuh`)."""
+    `csrc/point_tiles.cuh`; outputs come from the caching allocator, which
+    aligns them)."""
     vec = 16 // fused.element_size()
     C = fused.shape[-1] // 2
     if C % vec:
@@ -164,9 +165,11 @@ def patch_sample_fold_reference(fused, row, x0p, wx, wy, wl, fold):
 
 def patch_sample_fold(fused, row, x0p, wx, wy, wl, fold):
     """K1: see `patch_sample_fold_reference` for the contract. On CUDA the
-    inputs must be contiguous, the map float32 or bfloat16, row / x0p int32
-    and wx / wy / wl float32; indices must lie in the map (0 <= row < R,
-    0 <= x0p <= Wp - 2), which the samplers guarantee by clamping."""
+    inputs must be contiguous, the map float32 or bfloat16 at a 16-byte
+    aligned address with C a multiple of 8 (bf16) or 4 (f32), row / x0p
+    int32 and wx / wy / wl float32; indices must lie in the map
+    (0 <= row < R, 0 <= x0p <= Wp - 2), which the samplers guarantee by
+    clamping."""
     global LAUNCHES
     check_points("gather_fold", fused.shape, row, x0p, wx, wy)
     K = row.shape[1]
@@ -181,6 +184,7 @@ def patch_sample_fold(fused, row, x0p, wx, wy, wl, fold):
     check_cuda_inputs("gather_fold", (fused, row, x0p, wx, wy, wl),
                       (fused.dtype, i32, i32, f32, f32, f32))
     S, R, Wp, C2 = fused.shape
+    check_vector_loads("gather_fold", fused)
     out = torch.empty((S, K // fold, C2 // 2), dtype=fused.dtype,
                       device=fused.device)
     launch("gather_fold", code, fused.data_ptr(), row.data_ptr(),

@@ -33,17 +33,59 @@ def _inputs(dev, dtype, S=3, R=40, Wp=36, C=64, K=4096, seed=0):
     return fused, row, x0p, wx, wy, wl
 
 
+def _fold_layout(args, layout):
+    """K1 inputs of one layout (see `test_kernel_matches_plain`)."""
+    fused, row, x0p, wx, wy, wl = args
+    S, R, Wp, _ = fused.shape
+    idx = torch.arange(row.shape[1], device=row.device)
+    i32 = torch.int32
+    if layout == "last":  # the last row and the last readable column
+        row = torch.where(idx % 3 == 0, R - 1, row).to(i32).contiguous()
+        x0p = torch.where(idx % 2 == 0, Wp - 2, x0p).to(i32).contiguous()
+    elif layout == "border":  # every corner in the zero border
+        fused = fused.clone()
+        fused[:, :, :2] = 0
+        fused[:, :, -2:] = 0
+        x0p = torch.where(idx % 2 == 0, 0, Wp - 2).to(i32).expand_as(row)
+        x0p = x0p.contiguous()
+    elif layout == "wl0":  # zero weight on every other point
+        wl = torch.where(idx % 2 == 0, 0.0, wl).contiguous()
+    elif layout == "clustered":  # 90% of the points in 5% of the rows
+        g = torch.Generator(device=row.device).manual_seed(1)
+        hot = torch.randint(0, R, (S, max(1, R // 20)), generator=g,
+                            device=row.device)
+        pick = torch.randint(0, hot.shape[1], row.shape, generator=g,
+                             device=row.device)
+        move = torch.rand(row.shape, generator=g, device=row.device) < 0.9
+        row = torch.where(move, torch.gather(hot, 1, pick), row).to(i32)
+        row = row.contiguous()
+    return fused, row, x0p, wx, wy, wl
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("fold,C", [(1, 64), (4, 64), (5, 128)])
-def test_kernel_matches_plain(cuda, dtype, fold, C):
-    args = _inputs(cuda, dtype, C=C, K=4000)
+@pytest.mark.parametrize("fold,C,K,layout", [
+    (1, 64, 4000, "uniform"), (4, 64, 4000, "uniform"),
+    (5, 128, 4000, "uniform"), (3, 64, 3999, "uniform"),
+    (33, 64, 33 * 41, "uniform"), (40, 64, 4000, "uniform"),
+    (4, 64, 4, "uniform"), (4, 64, 44, "uniform"), (4, 64, 4000, "last"),
+    (4, 64, 4000, "border"), (4, 64, 4000, "wl0"), (4, 64, 4000, "clustered")])
+def test_kernel_matches_plain(cuda, dtype, fold, C, K, layout):
+    """K1 against its plain version: folds that divide the warp tile's 32
+    points and folds that do not (3, 5), one output spanning two or more
+    windows of 32 points (33, 40), one output per slab (K = fold), 11
+    outputs per slab (a ragged tile of 8), the last row and column, every
+    point on the zero border (exactly zero), zero weights and clustered
+    rows."""
+    args = _fold_layout(_inputs(cuda, dtype, C=C, K=K), layout)
     before = gather_kernel.LAUNCHES
     got = gather_kernel.patch_sample_fold(*args, fold)
     torch.cuda.synchronize()
     assert gather_kernel.LAUNCHES == before + 1
     want = gather_kernel.patch_sample_fold_reference(*args, fold)
     assert got.dtype == dtype and got.shape == want.shape
+    if layout == "border":
+        assert not want.any() and not got.any()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:  # one bf16 output rounding plus reordered f32 sums
@@ -223,22 +265,29 @@ def test_patch_scatter_is_repeatable(cuda, dtype):
                                    (3, 33, 64), (1, 1057, 128), (2, 77, 8),
                                    (2, 45, 24), (3, 70, 72), (8, 100000, 64)])
 def test_gather_kernels_tiling_tails(cuda, dtype, S, K, C):
-    """K2 and K4 against their plain versions where the point tiling of
+    """K1, K2 and K4 against their plain versions where the point tiling of
     `csrc/point_tiles.cuh` has edges: a last warp tile of 1, 31, 32 or 33
-    points of the flattened S x K, channel counts below one lane group's 64
-    (idle lanes) and past it (a second, partial pass), and more tiles than
-    the grid has warps."""
+    points of the flattened S x K (K1: of its outputs, at the largest of
+    folds 4, 3 and 1 that divides K), channel counts below one lane group's
+    64 (idle lanes) and past it (a second, partial pass), and more tiles
+    than the grid has warps."""
     fused, row, x0p, wx, wy, g = _points(cuda, dtype, S=S, C=C, K=K)
+    fold = next(f for f in (4, 3, 1) if K % f == 0)
+    wl = torch.randn(S, K, device=cuda)
     out = gather_kernel.patch_gather(fused, row, x0p, wx, wy)
     dwx, dwy = gather_kernel.patch_corner_grads(fused, g, row, x0p, wx, wy)
+    folded = gather_kernel.patch_sample_fold(fused, row, x0p, wx, wy, wl, fold)
     torch.cuda.synchronize()
     want = gather_kernel.patch_gather_reference(fused, row, x0p, wx, wy)
-    if dtype == torch.float32:
-        torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
-    else:
-        bound = 1e-2 * want.float().abs().max().item()
-        torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
-                                   atol=bound)
+    want_folded = gather_kernel.patch_sample_fold_reference(fused, row, x0p, wx,
+                                                            wy, wl, fold)
+    for got, ref in ((out, want), (folded, want_folded)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+        else:
+            bound = 1e-2 * ref.float().abs().max().item()
+            torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                                       atol=bound)
     for got, ref in zip((dwx, dwy), gather_kernel.patch_corner_grads_reference(
             fused, g, row, x0p, wx, wy)):
         torch.testing.assert_close(got, ref, rtol=1e-5,
@@ -248,15 +297,19 @@ def test_gather_kernels_tiling_tails(cuda, dtype, S, K, C):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gather_kernels_refuse_what_16_byte_loads_cannot_take(cuda, dtype):
-    """K2 and K4 read 16 bytes per lane: a contiguous map or cotangent view
-    at a storage offset that is not 16-byte aligned, or a C that is not a
-    multiple of 16 bytes' channels (8 bf16, 4 f32), raises rather than
+    """K1, K2 and K4 read 16 bytes per lane: a contiguous map or cotangent
+    view at a storage offset that is not 16-byte aligned, or a C that is not
+    a multiple of 16 bytes' channels (8 bf16, 4 f32), raises rather than
     falling back, and launches nothing."""
     fused, row, x0p, wx, wy, g = _points(cuda, dtype, K=100)
-    counts = (gather_kernel.GATHER_LAUNCHES, gather_kernel.CORNER_LAUNCHES)
+    wl = torch.randn(row.shape, device=cuda)
+    counts = (gather_kernel.LAUNCHES, gather_kernel.GATHER_LAUNCHES,
+              gather_kernel.CORNER_LAUNCHES)
     shifted = torch.empty(fused.numel() + 1, dtype=dtype, device=cuda)[1:]
     shifted = shifted.view(fused.shape).copy_(fused)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_kernel.patch_sample_fold(shifted, row, x0p, wx, wy, wl, 4)
     with pytest.raises(ValueError, match="16-byte aligned"):
         gather_kernel.patch_gather(shifted, row, x0p, wx, wy)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -268,10 +321,13 @@ def test_gather_kernels_refuse_what_16_byte_loads_cannot_take(cuda, dtype):
     C = 60 if dtype == torch.bfloat16 else 62  # even, not a multiple of 8 / 4
     narrow, row, x0p, wx, wy, g = _points(cuda, dtype, C=C, K=100)
     with pytest.raises(ValueError, match="multiple of"):
+        gather_kernel.patch_sample_fold(narrow, row, x0p, wx, wy, wl, 4)
+    with pytest.raises(ValueError, match="multiple of"):
         gather_kernel.patch_gather(narrow, row, x0p, wx, wy)
     with pytest.raises(ValueError, match="multiple of"):
         gather_kernel.patch_corner_grads(narrow, g, row, x0p, wx, wy)
-    assert (gather_kernel.GATHER_LAUNCHES, gather_kernel.CORNER_LAUNCHES) == counts
+    assert (gather_kernel.LAUNCHES, gather_kernel.GATHER_LAUNCHES,
+            gather_kernel.CORNER_LAUNCHES) == counts
 
 
 @pytest.mark.cuda

@@ -97,11 +97,16 @@ def test_bev_site_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("fold", [1, 4])
-def test_kernel_contract_matches_jax(fold):
+@pytest.mark.parametrize("fold,layout", [
+    (1, "uniform"), (2, "uniform"), (4, "uniform"), (8, "uniform"),
+    (4, "border"), (4, "clustered")])
+def test_kernel_contract_matches_jax(fold, layout):
     """K1 on explicit per-point inputs, corners included: column 0, the last
-    readable column and exact integer positions (wx = wy = 0)."""
-    rng = np.random.default_rng(2 + fold)
+    readable column and exact integer positions (wx = wy = 0); folds that
+    divide the JAX kernel's group of 256 points (it drops tail points
+    otherwise); every point on the zero border (both results exactly zero);
+    90% of the points in one row of ten."""
+    rng = np.random.default_rng(2 + fold + 10 * (layout != "uniform"))
     S, R, W, C, K = 2, 10, 13, 64, 64
     Wp = jbil.aligned_width(W - 2 * jbil.PAD)  # the TPU kernel's stored width
     fused = rng.normal(size=(S, R, Wp, 2 * C)).astype(np.float32)
@@ -113,6 +118,13 @@ def test_kernel_contract_matches_jax(fold):
     wx[:, :8:2] = 0.0
     wy[:, :8:2] = 0.0
     wl = rng.normal(size=(S, K)).astype(np.float32)
+    if layout == "border":  # columns 0-1 and W-2.. are the zero border
+        fused[:, :, :jbil.PAD] = 0.0
+        fused[:, :, W - jbil.PAD:] = 0.0
+        x0p[:] = np.where(np.arange(K) % 2 == 0, 0, W - 2)
+    elif layout == "clustered":
+        hot = rng.integers(0, R, size=(S, 1))
+        row = np.where(rng.uniform(size=(S, K)) < 0.9, hot, row).astype(np.int32)
     want = jax_fold(jnp.asarray(fused), jnp.asarray(row), jnp.asarray(x0p),
                     jnp.asarray(wx), jnp.asarray(wy), jnp.asarray(wl), fold,
                     batch_local=False)
@@ -120,6 +132,8 @@ def test_kernel_contract_matches_jax(fold):
     got = gather_kernel.patch_sample_fold(*args, fold)
     assert got.shape == (S, K // fold, C)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if layout == "border":
+        assert not got.any() and not np.asarray(want).any()
 
 
 def test_wrapper_checks_shapes():
