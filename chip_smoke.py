@@ -4,14 +4,16 @@
     python3 chip_smoke.py                   # needs one CUDA card
     python3 chip_smoke.py --profile FILE    # also profiles three steady
                                             # streaming steps and writes the
-                                            # torch.profiler table to FILE
+                                            # torch.profiler table to FILE,
+                                            # and three 4-stream steps
     python3 chip_smoke.py --train-profile FILE  # the same for one train step
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card and settings: the card's name and power limit, both TF32 flags
      (set off: the f32 head runs in full f32);
   2. building the CUDA kernels K1-K4 (csrc/*.cu) from this checkout, one nvcc
-     per source, all at once;
+     per source, all at once, and the native data loader
+     (csrc/dataloader.cpp, g++ -ljpeg) where the toolchain allows;
   3. K1 against its plain PyTorch version at the three decoder sites' flagship
      shapes, f32 and bf16 maps, ~20% of the points outside the map, each
      with its time and bound; K1 on the edges of its walk at the image site
@@ -52,7 +54,28 @@ Phases, each printed as it runs; any failure exits non-zero:
      versions, from equal weights, batch and draws: losses and gradients
      compared;
  10. a small f32 config's train step on the card (kernels) and on the CPU
-     (plain versions).
+     (plain versions);
+ 11. (run after phase 6) the multi-stream protocol: 4 ring-camera streams in
+     lockstep through `StreamingEvaluator.step_batch` for 10 steps, stream 1
+     resetting at step 4 and stream 2 at step 7 while the others keep their
+     windows; K1 must launch 18 times per step, as at B = 1; steady ms per
+     step, frames/s, the feature cache and the peak memory (with --profile,
+     the device-busy share); K1 on one 4-stream step's own inputs at each
+     site; each stream against its own `step()` sequence (head outputs
+     within phase 5's bound, decoded scores and boxes matched); B = 1
+     `step_batch` against `step()` bit for bit, with deterministic
+     algorithms;
+ 12. (run after phase 11) the offline protocol: `OfflineEvaluator` at batch
+     1 over 3 samples of the port's SyntheticDataset at full width; samples/s,
+     finite decoded boxes, 18 K1 launches per sample;
+ 13. (run last) the eval driver `python -m racformer_tpu_torch.eval`, in
+     process, on a split it writes in the nuScenes info layout (4 scenes x 3
+     keyframes, 6 cameras of 1600x900 JPEG, sweeps, radar, GT) in the three
+     protocols (--streaming --streams 4, --streaming, offline): each prints
+     its samples/s and the metrics; the 4-stream and single-stream
+     predictions matched sample by sample; the image-decode path printed.
+The K1 entry of the kernels line counts its launches on phases 4, 11, 12
+and 13, each counted from 0 just before the phase's run.
 No module of JAX or of the JAX package may have been imported by the end.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -259,6 +282,15 @@ def phase_build():
     for name, log in cuda_lib.build_logs.items():
         for line in ptxas_report(log, name in POINT_TILE_KERNELS):
             print(f"[2] ptxas {name} {line}")
+    from racformer_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"[2] native data loader (csrc/dataloader.cpp, g++ -ljpeg): "
+          + (f"built in {time.perf_counter() - t0:.2f} s at "
+             f"{native.library_path()}" if built else
+             "not available (no g++ or libjpeg to build or load it): "
+             "images decode with PIL"))
 
 
 def ptxas_report(log, point_tiles):
@@ -414,7 +446,6 @@ def fold_edge_cases(fmap, pts, fold, gen):
 
 def phase_main(model, dev, profile_path):
     from racformer_tpu_torch.eval import StreamingEvaluator
-    from racformer_tpu_torch.ops import deform_attn, msmv, sampling
     from racformer_tpu_torch.ops import gather_kernel as gk
 
     frames = ring_frames(model, STEPS + 4, 1536, SEED)
@@ -453,6 +484,26 @@ def phase_main(model, dev, profile_path):
 
     # on one more step: the share of image sample points that some camera
     # sees, and K1's inputs at each site in the first decoder iteration
+    seen, caught = capture_fold_inputs(
+        lambda: ev.step(frames[STEPS], blocking=False))
+    print(f"[4] in-view share of image sample points per decoder iteration: "
+          f"{', '.join(f'{s:.3f}' for s in seen)}")
+    check(min(seen) > 0.05, "image sample points are (almost) never in view")
+    step_fold_inputs(caught, "[4]")
+
+    if profile_path:
+        profile_steps(ev, frames[STEPS + 1:STEPS + 4], steady, profile_path)
+    return ev, steady, peak, launches
+
+
+def capture_fold_inputs(run):
+    """Run `run()` (one eval step) with K1's call sites spied on. Returns
+    (the in-view share of the image sample points per decoder iteration,
+    {site: (the addresses of K1's inputs as the step made them, a copy of
+    its arguments)} for the first decoder iteration)."""
+    from racformer_tpu_torch.ops import deform_attn, msmv, sampling
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
     seen, caught = [], {}
     orig = sampling.project_points_to_views
     folds = {mod: mod.patch_sample_fold for mod in (msmv, deform_attn)}
@@ -464,7 +515,7 @@ def phase_main(model, dev, profile_path):
 
     def spy(*args):  # per iteration: radar BEV, LSS BEV, then the image site
         site = ("radar_bev", "lss_bev", "image")[len(caught)] if len(caught) < 3 else None
-        if site:  # the inputs' addresses as the step made them, and a copy
+        if site:
             caught[site] = ([a.data_ptr() for a in args[:6]],
                             [a.clone() if torch.is_tensor(a) else a for a in args])
         return gk.patch_sample_fold(*args)
@@ -473,22 +524,15 @@ def phase_main(model, dev, profile_path):
     for mod in folds:
         mod.patch_sample_fold = spy
     try:
-        ev.step(frames[STEPS], blocking=False)
+        run()
     finally:
         sampling.project_points_to_views = orig
         for mod, fn in folds.items():
             mod.patch_sample_fold = fn
-    print(f"[4] in-view share of image sample points per decoder iteration: "
-          f"{', '.join(f'{s:.3f}' for s in seen)}")
-    check(min(seen) > 0.05, "image sample points are (almost) never in view")
-    step_fold_inputs(caught)
-
-    if profile_path:
-        profile_steps(ev, frames[STEPS + 1:STEPS + 4], steady, profile_path)
-    return ev, steady, peak, launches
+    return seen, caught
 
 
-def step_fold_inputs(caught):
+def step_fold_inputs(caught, tag):
     """K1 on its own inputs from one eval step's first decoder iteration, at
     each site: the maps' 16-byte alignment (the wrapper raises on others),
     the kernel against its plain version, timed, and the share of the
@@ -507,7 +551,7 @@ def step_fold_inputs(caught):
                         warmup=1)
         t_b, by = bound_ms("gather_fold", shape, pts, fmap.element_size(), fold)
         n = pts[0].numel()
-        print(f"[4] K1 on the step's inputs, {site} map {shape} {fmap.dtype} "
+        print(f"{tag} K1 on the step's inputs, {site} map {shape} {fmap.dtype} "
               f"K={pts[0].shape[1]} fold={fold}, map at {ptrs[0]:#x} "
               f"(16-byte aligned): max_abs_err {err:.3g} ({tol}) "
               f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} "
@@ -547,11 +591,20 @@ def host_ms(fn, runs=5):
     return statistics.median(times)
 
 
+def k1_in_step(events, runs):
+    """K1's device ms and launches per run in a profile's key averages."""
+    from torch.autograd import DeviceType
+
+    k1 = [e for e in events if e.device_type == DeviceType.CUDA
+          and "gather_fold_kernel" in e.key]
+    return (f"{sum(e.self_device_time_total for e in k1) / runs / 1e3:.3f} "
+            f"ms/step device over {sum(e.count for e in k1) // runs} "
+            f"launches/step of gather_fold_kernel")
+
+
 def profile_steps(ev, frames, steady_ms, path):
     """Device time of whole steps and of the two stages, against host time;
     the op table goes to `path`."""
-    from torch.autograd import DeviceType
-
     from racformer_tpu_torch.model import preprocess_images
 
     it = iter(frames)
@@ -571,12 +624,8 @@ def profile_steps(ev, frames, steady_ms, path):
               f"{e.count // 3:5d} calls/step  {e.key}")
     print(f"[4]   aten ops launched per step: "
           f"{sum(e.count for e in events if e.key.startswith('aten::')) // 3}")
-    k1 = [e for e in events if e.device_type == DeviceType.CUDA
-          and "gather_fold_kernel" in e.key]
-    print(f"[4]   K1 in the step: "
-          f"{sum(e.self_device_time_total for e in k1) / 3e3:.3f} ms/step device "
-          f"over {sum(e.count for e in k1) // 3} launches/step of "
-          f"gather_fold_kernel, beside device busy {busy:.2f} ms/step")
+    print(f"[4]   K1 in the step: {k1_in_step(events, 3)}, beside device busy "
+          f"{busy:.2f} ms/step")
 
     # the two stages on the cached window: encode_frame, decode_window
     model, dev = ev.model, ev.device
@@ -649,6 +698,383 @@ def phase_small(dev):
     print(f"[6] small config f32, card (K1, {launched} launches) vs CPU (plain): "
           f"max abs err {errs} (rtol 1e-3, atol 2e-3) {'ok' if ok else 'FAIL'}")
     check(launched == 6 and ok, "small-config run on the card disagrees with CPU")
+
+MS_STREAMS, MS_STEPS = 4, 10
+# (stream, step) of the mid-run scene resets: stream 1 at step 4 and stream 2
+# at step 7, each while the other streams keep their windows
+MS_RESETS = {(1, 4), (2, 7)}
+# the decoded scores of two runs of one model: sigmoid's slope is at most
+# 1/4, so phase 5's bound of 0.1 on a logit of magnitude <= 1 moves a score
+# by at most 0.025, and the k-th largest score by no more
+SCORE_TOL = 0.025
+
+
+class HeadOutputs:
+    """The last decoder layer's class logits and boxes of every call of the
+    model's head, in call order (a forward hook)."""
+
+    def __init__(self, model):
+        self.outs = []
+        self.handle = model.pts_bbox_head.register_forward_hook(self._hook)
+
+    def _hook(self, module, args, out):
+        self.outs.append((out["all_cls_scores"][-1].float().clone(),
+                          out["all_bbox_preds"][-1].float().clone()))
+
+    def close(self):
+        self.handle.remove()
+
+
+def head_bound(ref_cls, ref_box):
+    """Phase 5's bound on a window's head outputs: 0.1 of max(1, max|ref|)
+    for the class logits and for the boxes."""
+    return (0.1 * max(1.0, ref_cls.abs().max().item()),
+            0.1 * max(1.0, ref_box.abs().max().item()))
+
+
+def decoded_match(got, want):
+    """(ok, max |d score|, boxes matched, max |d box| of the matches) of two
+    decoded outputs of one frame (scores sorted descending, labels, [max_num,
+    9] boxes). The k-th scores must agree within SCORE_TOL. A box of `got`
+    scored more than 2 SCORE_TOL above `want`'s last score is a pair (query,
+    class) that `want` holds too, so it must find there a box of its label,
+    with a score within SCORE_TOL, that agrees within 0.1 of max(1, |box|)
+    (phase 5's form) in all nine fields."""
+    gs, ws = (np.asarray(x["scores"], np.float64) for x in (got, want))
+    gb, wb = (np.asarray(x["bboxes"], np.float64) for x in (got, want))
+    gl, wl = np.asarray(got["labels"]), np.asarray(want["labels"])
+    d_score = float(np.abs(gs - ws).max())
+    tol = 0.1 * np.maximum(1.0, np.abs(wb))
+    ok, matched, worst = d_score <= SCORE_TOL, 0, 0.0
+    for i in np.flatnonzero(gs > ws[-1] + 2 * SCORE_TOL):
+        cand = (wl == gl[i]) & (np.abs(ws - gs[i]) <= SCORE_TOL)
+        diff = np.abs(wb[cand] - gb[i])
+        fits = (diff <= tol[cand]).all(axis=1)
+        if fits.any():
+            matched += 1
+            worst = max(worst, float(diff[fits].max(axis=1).min()))
+        else:
+            ok = False
+    return ok, d_score, matched, worst
+
+
+def multistream_tapes(model):
+    """Per stream, MS_STEPS + 1 ring-camera frames and their resets (its
+    first step and MS_RESETS), timestamps relative to the stream's scene
+    start."""
+    tapes = []
+    for b in range(MS_STREAMS):
+        frames = ring_frames(model, MS_STEPS + 1, 1536, SEED + 10 + b)
+        resets, start = [], 0
+        for t, f in enumerate(frames):
+            reset = t == 0 or (b, t) in MS_RESETS
+            start = t if reset else start
+            f["timestamp"] = 0.5 * (t - start)
+            resets.append(reset)
+        tapes.append((frames, resets))
+    return tapes
+
+
+def phase_multistream(model, dev, profile_path):
+    """B = 4 lockstep streams through `step_batch` at full width."""
+    from racformer_tpu_torch.eval import StreamingEvaluator
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    B = MS_STREAMS
+    tapes = multistream_tapes(model)
+    frames_at = lambda t: [tapes[b][0][t] for b in range(B)]
+    resets_at = lambda t: [tapes[b][1][t] for b in range(B)]
+    ev = StreamingEvaluator(model)
+    heads = HeadOutputs(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, outs = [], []
+    gk.LAUNCHES = 0
+    for t in range(MS_STEPS):
+        t0 = time.perf_counter()
+        out = ev.step_batch(frames_at(t), resets_at(t), blocking=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    launches = gk.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    batched = list(heads.outs)
+    check(launches == 18 * MS_STEPS,
+          f"K1 launched {launches} times in {MS_STEPS} B = {B} steps, expected "
+          f"{18 * MS_STEPS}")
+    head = model.pts_bbox_head
+    n_boxes = min(300, head.num_query * head.num_classes)
+    for out in outs:
+        check(tuple(out["bboxes"].shape) == (B, n_boxes, 9), "bad box shape")
+        check(bool(torch.isfinite(out["scores"]).all())
+              and bool(torch.isfinite(out["bboxes"]).all()),
+              "non-finite scores or boxes")
+    steady = statistics.median(step_ms[2:])
+    cache = sum(x.numel() * x.element_size() for x in ev.cache)
+    print(f"[11] {MS_STEPS} lockstep steps of {B} streams (resets at (stream, "
+          f"step) {sorted(MS_RESETS)}): K1 launches {launches} "
+          f"({launches // MS_STEPS} per step, as at B = 1); outputs finite, "
+          f"boxes {tuple(outs[-1]['bboxes'].shape)}")
+    print(f"[11] step ms: first {step_ms[0]:.2f}, second {step_ms[1]:.2f}, "
+          f"steady median {steady:.2f} (min {min(step_ms[2:]):.2f}, max "
+          f"{max(step_ms[2:]):.2f}) over steps 3..{MS_STEPS}: "
+          f"{B * 1e3 / steady:.2f} frames/s")
+    print(f"[11] feature cache {cache} B ({cache / B / 2**30:.3f} GiB per "
+          f"stream); peak device memory (max_memory_allocated) {peak} B "
+          f"({peak / 2**30:.2f} GiB)")
+
+    # K1 on one more B = 4 step's own inputs, at the three sites
+    _, caught = capture_fold_inputs(lambda: ev.step_batch(
+        frames_at(MS_STEPS), [False] * B, blocking=False))
+    step_fold_inputs(caught, "[11]")
+    del caught
+    if profile_path:
+        fr = frames_at(MS_STEPS)
+        events, busy = profiled(lambda: ev.step_batch(fr, [False] * B,
+                                                      blocking=False), 3)
+        print(f"[11] profile of 3 steps: device busy {busy:.2f} ms/step against "
+              f"the unprofiled steady step {steady:.2f} ms: idle share "
+              f"{max(0.0, 1 - busy / steady):.3f}; aten ops launched per step "
+              f"{sum(e.count for e in events if e.key.startswith('aten::')) // 3}"
+              f"; K1 in the step: {k1_in_step(events, 3)}")
+    del ev
+    torch.cuda.empty_cache()
+
+    # each stream against its own step() sequence (the same model, B = 1)
+    heads.outs.clear()
+    d_cls = d_box = d_score = d_dec = 0.0
+    compared, ok = 0, True
+    for b in range(B):
+        single = StreamingEvaluator(model)
+        frames, resets = tapes[b]
+        for t in range(MS_STEPS):
+            if resets[t]:
+                single.reset()
+            ref = single.step(frames[t])
+            ref_cls, ref_box = heads.outs[-1]
+            tol_cls, tol_box = head_bound(ref_cls, ref_box)
+            e_cls = (batched[t][0][b] - ref_cls[0]).abs().max().item()
+            e_box = (batched[t][1][b] - ref_box[0]).abs().max().item()
+            good, e_score, n, e_dec = decoded_match(
+                {k: v[b].cpu().numpy() for k, v in outs[t].items()},
+                {k: v[0] for k, v in ref.items()})
+            ok = ok and good and e_cls <= tol_cls and e_box <= tol_box
+            d_cls, d_box = max(d_cls, e_cls), max(d_box, e_box)
+            d_score, compared = max(d_score, e_score), compared + n
+            d_dec = max(d_dec, e_dec)
+    print(f"[11] each stream against its own step() sequence: head max |d cls "
+          f"logits| {d_cls:.4g}, max |d boxes| {d_box:.4g} (bound 0.1 max(1, "
+          f"max|ref|) each, phase 5's); decoded scores max |d| {d_score:.4g} "
+          f"(bound {SCORE_TOL}); {compared} decoded boxes matched, max |d| "
+          f"{d_dec:.4g} (bound 0.1 max(1, |box|)) {'ok' if ok else 'FAIL'}")
+    check(ok, "a stream of the B = 4 run disagrees with its own step() sequence")
+
+    # B = 1 lockstep against step(), stream 1 (its reset at step 4 included),
+    # with deterministic algorithms: index_add_ (the LSS splat, the pillar
+    # sums) otherwise adds in the order its atomics land
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        frames, resets = tapes[1]
+        lock, single = StreamingEvaluator(model), StreamingEvaluator(model)
+        heads.outs.clear()
+        exact = True
+        for t in range(6):
+            got = lock.step_batch([frames[t]], [resets[t]], blocking=False)
+            if resets[t]:
+                single.reset()
+            want = single.step(frames[t], blocking=False)
+            exact = exact and all(torch.equal(got[k], want[k]) for k in want)
+            exact = exact and all(torch.equal(x, y) for x, y in
+                                  zip(heads.outs[-2], heads.outs[-1]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        heads.close()
+    print(f"[11] B = 1 step_batch against step() over 6 steps of stream 1 "
+          f"(reset at step 4), deterministic algorithms: decoded outputs and "
+          f"head outputs {'bitwise equal' if exact else 'DIFFER'}")
+    check(exact, "B = 1 step_batch differs from step()")
+    return launches, steady, peak
+
+
+OFFLINE_SAMPLES = 3
+
+
+def phase_offline(model, dev):
+    """`OfflineEvaluator` at batch 1 over the port's SyntheticDataset at
+    full width: every frame of each sample's window encoded, decoded."""
+    from racformer_tpu_torch.data import SyntheticDataset
+    from racformer_tpu_torch.eval import OfflineEvaluator
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    ds = SyntheticDataset(num_samples=OFFLINE_SAMPLES, num_cams=model.num_cams,
+                          num_frames=model.num_frames, hw=model.image_hw,
+                          max_radar_points=1536, max_gt=model.max_gt)
+    ev = OfflineEvaluator(model, batch_size=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    preds, gts, rate = ev.run(ds)
+    wall = time.perf_counter() - t0
+    launches = gk.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    head = model.pts_bbox_head
+    n_boxes = min(300, head.num_query * head.num_classes)
+    check(len(preds) == len(gts) == OFFLINE_SAMPLES, "offline: wrong count")
+    for p in preds:
+        check(p["bboxes"].shape == (n_boxes, 9) and p["valid"].shape == (n_boxes,),
+              "offline: bad box shape")
+        check(bool(np.isfinite(p["scores"]).all() and np.isfinite(p["bboxes"]).all()),
+              "offline: non-finite scores or boxes")
+    check(launches == 18 * OFFLINE_SAMPLES,
+          f"offline: K1 launched {launches} times, expected {18 * OFFLINE_SAMPLES}")
+    print(f"[12] offline, batch 1, {OFFLINE_SAMPLES} synthetic samples of "
+          f"{model.num_frames} frames x {model.num_cams} cameras: {rate:.3f} "
+          f"samples/s (model calls after the first, host clock, synchronized); "
+          f"{wall:.2f} s in all with the data; K1 launches {launches}; boxes "
+          f"finite, valid per sample {[int(p['valid'].sum()) for p in preds]}; "
+          f"peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    return launches, rate
+
+
+NUSC_CAMS = (("CAM_FRONT", 0.0), ("CAM_FRONT_RIGHT", -55.0),
+             ("CAM_FRONT_LEFT", 55.0), ("CAM_BACK", 180.0),
+             ("CAM_BACK_LEFT", 110.0), ("CAM_BACK_RIGHT", -110.0))
+NUSC_SCENES, NUSC_SAMPLES = 4, 3
+
+
+def write_nuscenes_split(root):
+    """A split in the nuScenes info layout that the port's reader takes:
+    NUSC_SCENES scenes of NUSC_SAMPLES keyframes 0.5 s apart, six cameras
+    on the ego ring with JPEG images at 1600x900 and sensor2lidar
+    extrinsics and intrinsics, two history sweeps per keyframe (the
+    scene's earlier keyframes, or the first one), radar points per frame
+    and ten GT boxes per keyframe, all from SEED. Returns the info path."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 20)
+    H, W = 900, 1600
+    y, x = np.mgrid[0:H, 0:W]
+    K = np.array([[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5], [0.0, 0.0, 1.0]])
+
+    def camera(yaw_deg, path, ts):
+        yaw = np.deg2rad(yaw_deg)
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        right = np.array([np.sin(yaw), -np.cos(yaw), 0.0])
+        R = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)  # camera axes
+        return dict(data_path=str(path), timestamp=ts, sensor2lidar_rotation=R,
+                    sensor2lidar_translation=np.array([0.0, 0.0, 1.6]),
+                    cam_intrinsic=K)
+
+    base = 1_533_151_603_547_590  # microseconds, a nuScenes-like epoch
+    keyframes = []
+    for s in range(NUSC_SCENES):
+        for i in range(NUSC_SAMPLES):
+            ts = base + 20_000_000 * s + 500_000 * i
+            cams = {}
+            for c, (name, yaw) in enumerate(NUSC_CAMS):
+                shift = int(rng.integers(0, 256))
+                img = np.stack([(x // 7 + shift) % 256, (y // 5 + 3 * c) % 256,
+                                ((x // 40 + y // 40) % 2) * 200 + 20], -1)
+                path = root / f"s{s}_k{i}_{name}.jpg"
+                Image.fromarray(img.astype(np.uint8)).save(path, quality=90)
+                cams[name] = camera(yaw, path, ts)
+            radar = np.zeros((300, 7), np.float32)
+            radar[:, 0:2] = rng.uniform(-50, 50, size=(300, 2))
+            radar[:, 2] = rng.normal(0.5, 0.5, size=300)
+            radar[:, 3:6] = rng.normal(size=(300, 3))
+            gt = np.zeros((10, 9), np.float32)
+            gt[:, 0:2] = rng.uniform(-40, 40, size=(10, 2))
+            gt[:, 2] = rng.uniform(-1, 1, size=10)
+            gt[:, 3:6] = rng.uniform(0.5, 5.0, size=(10, 3))
+            gt[:, 6] = rng.uniform(-np.pi, np.pi, size=10)
+            gt[:, 7:9] = rng.normal(size=(10, 2))
+            keyframes.append(dict(
+                token=f"s{s}k{i}", scene_token=f"scene-{s:04d}", timestamp=ts,
+                cams=cams, radar_points=radar, gt_boxes=gt,
+                gt_labels=rng.integers(0, 10, size=10),
+                ego2lidar_xy=(0.0, 0.0)))
+    for k, info in enumerate(keyframes):
+        i = k % NUSC_SAMPLES
+        history = [keyframes[k - j] for j in (1, 2) if i - j >= 0] or [info]
+        info["sweeps_cam"] = [dict(cams=h["cams"], timestamp=h["timestamp"],
+                                   radar_points=h["radar_points"])
+                              for h in history]
+    ann = root / "nuscenes_infos_val_sweep.pkl"
+    import pickle
+
+    with open(ann, "wb") as f:
+        pickle.dump({"infos": keyframes}, f)
+    return ann
+
+
+def phase_driver():
+    """`python -m racformer_tpu_torch.eval` in process on the fabricated
+    split, in the three protocols; single-stream and 4-stream predictions
+    compared sample by sample."""
+    import contextlib
+    import io
+    import tempfile
+
+    from racformer_tpu_torch.data import native
+    from racformer_tpu_torch.eval.__main__ import main as eval_main
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    n = NUSC_SCENES * NUSC_SAMPLES
+    runs, total = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ann = write_nuscenes_split(Path(tmp))
+        print(f"[13] wrote {n} keyframes ({NUSC_SCENES} scenes x "
+              f"{NUSC_SAMPLES}) x {len(NUSC_CAMS)} cameras of 1600x900 JPEG "
+              f"in the nuScenes info layout in {time.perf_counter() - t0:.2f} s")
+        decode = (f"native libjpeg ({native.library_path()})"
+                  if native.available() else
+                  "PIL (the port's native library is not available: no g++ "
+                  "or libjpeg)")
+        print(f"[13] image decode path: {decode}")
+        base = ["--config", str(CONFIG), "--override",
+                f"data.val.ann_file={ann}"]
+        for name, extra in (("--streaming --streams 4",
+                             ["--streaming", "--streams", "4"]),
+                            ("--streaming", ["--streaming"]),
+                            ("offline", [])):
+            buf = io.StringIO()
+            gk.LAUNCHES = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                preds, metrics = eval_main(base + extra)
+            secs = time.perf_counter() - t0
+            launches = gk.LAUNCHES
+            total += launches
+            text = buf.getvalue()
+            rate = [l for l in text.splitlines() if l.startswith("eval:")]
+            print(f"[13] eval driver {name}: {rate[0] if rate else 'no eval line'}"
+                  f" ({secs:.2f} s in all); K1 launches {launches}; metrics "
+                  f"{json.dumps({k: round(float(v), 4) for k, v in (metrics or {}).items() if isinstance(v, (int, float))})}")
+            check(f"eval: {n} samples" in text and '"NDS"' in text,
+                  f"eval driver {name}: no eval line or metrics")
+            check(metrics is not None and all(
+                np.isfinite(float(v)) for v in metrics.values()
+                if isinstance(v, (int, float))), f"eval driver {name}: metrics")
+            check(len(preds) == n and launches > 0 and all(
+                np.isfinite(p["scores"]).all() and np.isfinite(p["bboxes"]).all()
+                for p in preds), f"eval driver {name}: predictions")
+            runs[name] = preds
+    worst = d_box = 0.0
+    compared, ok = 0, True
+    for a, b in zip(runs["--streaming --streams 4"], runs["--streaming"]):
+        good, d_score, k, e_box = decoded_match(a, b)
+        ok, compared = ok and good, compared + k
+        worst, d_box = max(worst, d_score), max(d_box, e_box)
+    print(f"[13] 4 streams against one stream, sample by sample: decoded "
+          f"scores max |d| {worst:.4g} (bound {SCORE_TOL}), {compared} boxes "
+          f"matched, max |d| {d_box:.4g} (bound 0.1 max(1, |box|)) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "4-stream predictions disagree with single-stream ones")
+    return total
+
 
 TRAIN_STEPS = 5
 # the kernels of one K3 call (csrc/patch_scatter.cu), as the profiler names them
@@ -1255,17 +1681,12 @@ def phase_train_small(dev):
 def flagship_model(dev):
     """The flagship config (read with runpy), the model's arguments and the
     model on `dev` with seeded random weights, in eval mode."""
-    from racformer_tpu_torch.model import RaCFormer, random_init_
+    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
 
     cfg = runpy.run_path(str(CONFIG))
-    mcfg = cfg["model"]
-    kwargs = {k: mcfg[k] for k in (
-        "num_cams", "num_frames", "embed_dims", "num_query", "num_clusters",
-        "num_levels", "num_groups", "image_hw", "pc_range", "depth_bins",
-        "bev_size")}
-    kwargs["num_classes"] = len(cfg["class_names"])
+    kwargs = config_kwargs(cfg)
     with torch.device(dev):
-        model = RaCFormer(**kwargs, decoder=dict(cfg["decoder"]))
+        model = RaCFormer(**kwargs)
     random_init_(model, torch.Generator().manual_seed(SEED)).eval()
     return cfg, kwargs, model
 
@@ -1293,9 +1714,13 @@ def main(argv):
     max_err, k_ms, p_ms, b_ms, b_by = phase_kernel(model, dev)
     ev, steady, peak, launches = phase_main(model, dev, args.profile)
     phase_reference(model, ev)
+    del ev
+    torch.cuda.empty_cache()
     phase_small(dev)
+    ms_launches, ms_steady, ms_peak = phase_multistream(model, dev, args.profile)
+    off_launches, off_rate = phase_offline(model, dev)
     patch = phase_patch_kernels(model, dev)
-    del ev, model
+    del model
     torch.cuda.empty_cache()
     tmodel, tbatch, tlaunches, tsteady, tfirst, tpeak = phase_train(
         cfg, dev, args.train_profile)
@@ -1303,18 +1728,26 @@ def main(argv):
     del tmodel, tbatch
     torch.cuda.empty_cache()
     phase_train_small(dev)
+    drv_launches = phase_driver()
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
     print(f"[-] {card}: steady streaming step {steady:.2f} ms, peak memory "
-          f"{peak / 2**30:.2f} GiB; train step (batch 2, 2 microbatches) "
+          f"{peak / 2**30:.2f} GiB; {MS_STREAMS}-stream lockstep step "
+          f"{ms_steady:.2f} ms ({MS_STREAMS * 1e3 / ms_steady:.2f} frames/s), "
+          f"peak memory {ms_peak / 2**30:.2f} GiB; offline {off_rate:.3f} "
+          f"samples/s; train step (batch 2, 2 microbatches) "
           f"first {tfirst:.2f} ms, steady {tsteady:.2f} ms, peak memory "
           f"{tpeak / 2**30:.2f} GiB")
+    k1_launches = launches + ms_launches + off_launches + drv_launches
+    print(f"[-] K1 launches on the eval paths: {k1_launches} = streaming "
+          f"{launches} + {MS_STREAMS} streams {ms_launches} + offline "
+          f"{off_launches} + eval driver {drv_launches}")
     kernels = [{
         "name": "gather_fold", "route": "cuda",
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
         "replaces": "racformer_tpu/ops/gather_kernel.py:187",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": k1_launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
     for (name, replaces), n in zip((

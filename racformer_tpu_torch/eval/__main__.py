@@ -1,0 +1,183 @@
+"""Evaluation driver of the port (counterpart of the repository's `val.py`),
+on one CUDA device unless `--device cpu` is asked for:
+
+    python -m racformer_tpu_torch.eval \\
+        --config racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py \\
+        [--checkpoint FILE] [--synthetic] [--streaming [--streams N]]
+
+Three protocols: the batched offline forward over every frame of each
+sample's window (`OfflineEvaluator`, `--batch-size` samples per call), the
+single-stream streaming latency protocol (`--streaming`: one frame per step
+through the feature cache, reset at scene boundaries) and the multi-stream
+throughput protocol (`--streaming --streams N`: N scene streams in
+lockstep). The dataset is VoD, synthetic or nuScenes, chosen as `val.py`
+chooses. Prints `eval: N samples, X samples/s` and the metrics as JSON.
+
+Checkpoints: a torch `.pth` / `.pt` state dict (the reference's parameter
+names, which are the port's; its `version` field sets the legacy box
+convention), or a pickled `{'params': ..., 'batch_stats': ...}` file with
+numpy leaves (converted by `tools.convert_weights.state_dict_from_jax`).
+Without one the model has seeded random weights.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+
+import torch
+
+ROADMAP_CONVERTER = ("reading it needs JAX; convert it to a pickle of numpy "
+                     "leaves first (the converter script is queued in "
+                     "ROADMAP.md §1)")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", required=True)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--override", nargs="+", default=[])
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--streaming", action="store_true",
+                   help="per-frame streaming eval with the temporal feature "
+                        "cache")
+    p.add_argument("--streams", type=int, default=1,
+                   help="with --streaming: run N independent scene streams "
+                        "in lockstep (the throughput protocol); 1 = the "
+                        "single-stream latency protocol")
+    p.add_argument("--max-samples", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="samples per offline forward")
+    p.add_argument("--plot-dir", default=None,
+                   help="not ported yet (tools/eval_plots.py)")
+    p.add_argument("--dump-eval", default=None,
+                   help="pickle (preds, gts) here for offline re-analysis")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (the default) or cpu, which runs every kernel's "
+                        "plain version")
+    return p.parse_args(argv)
+
+
+def build_dataset(cfg, model, args):
+    """VoD, synthetic or nuScenes, as `val.py` chooses."""
+    from ..data import NuScenesRadarDataset, SyntheticDataset
+
+    max_samples = args.max_samples or cfg.get("max_samples")
+    ann = cfg["data"]["val"]["ann_file"]
+    is_vod = cfg.get("dataset_type") == "vod"
+    if is_vod and os.path.exists(ann) and not args.synthetic:
+        from ..data.vod import VoDDataset
+
+        return VoDDataset(
+            ann, data_root=os.path.dirname(os.path.dirname(ann)),
+            image_hw=model.image_hw,
+            max_radar_points=cfg["radar"]["max_points"],
+            max_gt=model.max_gt, max_samples=max_samples)
+    if args.synthetic or not os.path.exists(ann):
+        return SyntheticDataset(
+            num_samples=max_samples or 8, num_cams=model.num_cams,
+            num_frames=model.num_frames, hw=model.image_hw,
+            max_radar_points=cfg["radar"]["max_points"],
+            max_gt=model.max_gt)
+    return NuScenesRadarDataset(
+        ann, num_frames=model.num_frames,
+        frame_interval=int(cfg["data"]["val"].get("frame_interval", 6)),
+        image_hw=model.image_hw,
+        ida_cfg=dict(cfg["ida_aug"]) if cfg.get("ida_aug") else None,
+        max_radar_points=cfg["radar"]["max_points"], max_gt=model.max_gt,
+        training=False, max_samples=max_samples)
+
+
+class _NumpyOnlyUnpickler(pickle.Unpickler):
+    """Refuses a pickle whose objects come from JAX (the port imports
+    none of it)."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("jax", "jaxlib", "flax", "orbax"):
+            raise SystemExit(f"the checkpoint holds {module}.{name} objects: "
+                             f"{ROADMAP_CONVERTER}")
+        return super().find_class(module, name)
+
+
+def load_checkpoint(model, path: str, legacy_version: str) -> str:
+    """Load `path` into `model`; returns the legacy box-convention version
+    it names (`legacy_version` when it names none)."""
+    if os.path.isdir(path):
+        raise SystemExit(f"{path} is a directory (a JAX training work_dir "
+                         f"of orbax checkpoints): {ROADMAP_CONVERTER}")
+    if path.endswith((".pth", ".pt")):
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        model.load_state_dict(ckpt.get("state_dict", ckpt))
+        return ckpt.get("version", legacy_version) or legacy_version
+    from ..tools.convert_weights import state_dict_from_jax
+
+    with open(path, "rb") as f:
+        variables = _NumpyOnlyUnpickler(f).load()
+    legacy_version = variables.pop("version", legacy_version)
+    model.load_state_dict(state_dict_from_jax(variables, model))
+    return legacy_version
+
+
+def main(argv=None):
+    """Runs the evaluation; returns (preds, metrics) for callers in
+    process (metrics is None without ground truth)."""
+    args = parse_args(argv)
+    if args.plot_dir:
+        raise SystemExit("--plot-dir is not ported yet: tools/eval_plots.py "
+                         "is queued in ROADMAP.md §1")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("the eval driver needs a CUDA device (pass --device "
+                         "cpu to run the plain versions on the CPU)")
+    device = torch.device(args.device)
+
+    from ..config import Config
+    from ..model import RaCFormer, config_kwargs, random_init_
+    from .offline import OfflineEvaluator, detection_metrics
+    from .streaming import (StreamingEvaluator, run_multistream,
+                            run_single_stream)
+
+    cfg = Config.fromfile(args.config).merge_override(args.override)
+    with torch.device(device):
+        model = RaCFormer(**config_kwargs(cfg))
+    random_init_(model, torch.Generator().manual_seed(0))
+    legacy_version = "v1.0.0"
+    if args.checkpoint:
+        legacy_version = load_checkpoint(model, args.checkpoint,
+                                         legacy_version)
+    model.eval()
+    dataset = build_dataset(cfg, model, args)
+    is_vod = cfg.get("dataset_type") == "vod"
+
+    ecfg = dict(cfg.get("eval_cfg", {}))
+    ecfg.setdefault("legacy_version", legacy_version)
+    num = len(dataset)
+    if args.streaming and args.streams > 1:
+        ev = StreamingEvaluator(model, eval_cfg=ecfg)
+        preds, gts, fps = run_multistream(ev, dataset, args.streams)
+    elif args.streaming:
+        preds, gts, fps = run_single_stream(
+            StreamingEvaluator(model, eval_cfg=ecfg), dataset)
+    else:
+        ev = OfflineEvaluator(model, eval_cfg=ecfg,
+                              batch_size=max(1, int(args.batch_size)))
+        preds, gts, fps = ev.run(dataset)
+    print(f"eval: {num} samples, {fps:.2f} samples/s")
+
+    metrics = None
+    if gts:
+        metrics = detection_metrics(
+            preds, gts, is_vod=is_vod,
+            class_names=list(cfg.get("class_names", [])) or None,
+            front_only=bool(cfg.get("eval_front_only", False)))
+        if args.dump_eval:
+            with open(args.dump_eval, "wb") as f:
+                pickle.dump((preds, gts), f)
+        print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()
+                          if isinstance(v, (int, float))}, indent=2))
+    return preds, metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,19 @@ import torch
 from ..ops.bbox_codec import denormalize_bbox
 
 
+def decode_config(eval_cfg=None) -> dict:
+    """`decode_boxes`' keyword arguments from a config's `eval_cfg`: the one
+    box-decode configuration, shared by the streaming and offline
+    evaluators, so a knob cannot apply to one protocol and not the other."""
+    ecfg = eval_cfg or {}
+    return dict(
+        max_num=ecfg.get("max_num", 300),
+        score_threshold=ecfg.get("score_threshold", 0.05),
+        post_center_range=tuple(ecfg.get(
+            "post_center_range", (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0))),
+        legacy_version=ecfg.get("legacy_version", "v1.0.0"))
+
+
 def decode_boxes(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
                  max_num: int = 300, score_threshold: float = 0.05,
                  post_center_range=(-61.2, -61.2, -10.0, 61.2, 61.2, 10.0),

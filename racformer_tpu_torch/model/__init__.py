@@ -1,1 +1,1 @@
-from .racformer import RaCFormer, preprocess_images, random_init_
+from .racformer import RaCFormer, config_kwargs, preprocess_images, random_init_

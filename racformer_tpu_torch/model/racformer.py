@@ -208,6 +208,23 @@ class RaCFormer(nn.Module):
         return outs
 
 
+CONFIG_FIELDS = ("num_cams", "num_frames", "embed_dims", "num_query",
+                 "num_clusters", "num_levels", "num_groups", "image_hw",
+                 "pc_range", "depth_bins", "bev_size", "query_denoising",
+                 "max_gt")
+
+
+def config_kwargs(cfg) -> dict:
+    """`RaCFormer`'s arguments from a config (a dict of the config file's
+    names): the `model` block's fields, one class per name of
+    `class_names`, the `decoder` block."""
+    mcfg = dict(cfg["model"])
+    kwargs = {k: mcfg[k] for k in CONFIG_FIELDS if k in mcfg}
+    kwargs["num_classes"] = len(cfg["class_names"])
+    kwargs["decoder"] = dict(cfg.get("decoder") or {})
+    return kwargs
+
+
 @torch.no_grad()
 def random_init_(model: RaCFormer, generator: torch.Generator) -> RaCFormer:
     """Seeded random weights with no zero kernels, for smoke runs.

@@ -5,10 +5,11 @@ port.
   checkpoint's keys and shapes (`tests/reference_keyset.py`).
 * JAX -> port conversion is the exact inverse of the JAX package's
   port -> JAX converter: a round trip returns every tensor bit for bit.
-* Importing the port (`train.__main__` and the config loader included) loads
-  neither jax, flax nor the JAX package `racformer_tpu`; its sources and
-  `chip_smoke.py` import none of them and use no fused-attention operator,
-  `torch.compile` or kernel library.
+* Importing any module of the port (the train and eval drivers, the data
+  layer and the config loader included) loads neither jax, flax, the JAX
+  package `racformer_tpu` nor Pillow; its sources and `chip_smoke.py` import
+  none of them (Pillow only inside the functions that decode images) and
+  use no fused-attention operator, `torch.compile` or kernel library.
 """
 
 import pathlib
@@ -69,13 +70,28 @@ def test_weight_round_trip_is_exact():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys\n"
-            "import racformer_tpu_torch.model, racformer_tpu_torch.eval\n"
-            "import racformer_tpu_torch.ops.gather_kernel\n"
-            "import racformer_tpu_torch.tools.convert_weights\n"
-            "import racformer_tpu_torch.train.__main__, racformer_tpu_torch.config\n"
+    """Every module of the port, the drivers and the data layer included,
+    imports without loading JAX, the JAX package or Pillow (the data
+    modules import Pillow only where they decode an image)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "racformer_tpu_torch").rglob("*.py"))
+    for name in ("racformer_tpu_torch.eval.__main__",
+                 "racformer_tpu_torch.eval.offline",
+                 "racformer_tpu_torch.eval.metrics",
+                 "racformer_tpu_torch.eval.kitti_eval",
+                 "racformer_tpu_torch.data.nuscenes",
+                 "racformer_tpu_torch.data.native",
+                 "racformer_tpu_torch.train.hostdata",
+                 "racformer_tpu_torch.train.hooks",
+                 "racformer_tpu_torch.tools.export_results",
+                 "racformer_tpu_torch.tools.gen_sweep_info"):
+        assert name in modules
+    code = ("import importlib, sys\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name.removesuffix('.__init__'))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'flax', 'racformer_tpu')]\n"
+            "       ('jax', 'flax', 'racformer_tpu', 'PIL')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -95,3 +111,5 @@ def test_port_sources_use_no_forbidden_code():
         for b in banned:
             assert b not in text, f"{path.name} contains {b!r}"
         assert not jax_package.search(text), f"{path.name} imports racformer_tpu"
+        assert not re.search(r"^(from|import) PIL", text, re.M), (
+            f"{path.name} imports Pillow at module level")
