@@ -74,8 +74,25 @@ Phases, each printed as it runs; any failure exits non-zero:
      protocols (--streaming --streams 4, --streaming, offline): each prints
      its samples/s and the metrics; the 4-stream and single-stream
      predictions matched sample by sample; the image-decode path printed.
-The K1 entry of the kernels line counts its launches on phases 4, 11, 12
-and 13, each counted from 0 just before the phase's run.
+ 14. (run last) the train driver `python -m racformer_tpu_torch.train`, in
+     process, on the flagship config with --synthetic (4 samples, 2 steps per
+     epoch, an in-training offline eval of 2 samples at every epoch, the
+     metrics logged every step): run A --max-steps 2 --ema --match-stats,
+     run B --max-steps 4 --resume --ema --match-stats in the same work dir,
+     then the eval driver on the work dir (--checkpoint, offline, 2
+     samples); each checkpoint verified, run B's restored state bitwise the
+     one run A saved (by digest), one val record per epoch, a best
+     checkpoint, match statistics per decoder layer and epoch, K2 / K3 / K4
+     at phase 8's counts in every step and K1 at 18 per eval sample, the eval
+     driver's predictions bitwise those of the in-memory model that saved
+     the checkpoint (deterministic algorithms); then 2 steps on a
+     nuScenes-layout training split (phase 13's writer, JPEG decode,
+     ida_aug, bev_aug) through the prefetching loader. Prints each step's
+     ms, the loader's wait, each save's seconds and bytes, each eval's
+     seconds and the peak memory, beside the card's name and power limit.
+The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
+13 and 14, the K2-K4 entries theirs on phases 8 and 14, each counted from 0
+just before the phase's run.
 No module of JAX or of the JAX package may have been imported by the end.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -944,7 +961,7 @@ NUSC_CAMS = (("CAM_FRONT", 0.0), ("CAM_FRONT_RIGHT", -55.0),
 NUSC_SCENES, NUSC_SAMPLES = 4, 3
 
 
-def write_nuscenes_split(root):
+def write_nuscenes_split(root, name="nuscenes_infos_val_sweep.pkl"):
     """A split in the nuScenes info layout that the port's reader takes:
     NUSC_SCENES scenes of NUSC_SAMPLES keyframes 0.5 s apart, six cameras
     on the ego ring with JPEG images at 1600x900 and sensor2lidar
@@ -1001,7 +1018,7 @@ def write_nuscenes_split(root):
         info["sweeps_cam"] = [dict(cams=h["cams"], timestamp=h["timestamp"],
                                    radar_points=h["radar_points"])
                               for h in history]
-    ann = root / "nuscenes_infos_val_sweep.pkl"
+    ann = root / name
     import pickle
 
     with open(ann, "wb") as f:
@@ -1013,8 +1030,6 @@ def phase_driver():
     """`python -m racformer_tpu_torch.eval` in process on the fabricated
     split, in the three protocols; single-stream and 4-stream predictions
     compared sample by sample."""
-    import contextlib
-    import io
     import tempfile
 
     from racformer_tpu_torch.data import native
@@ -1040,15 +1055,12 @@ def phase_driver():
                              ["--streaming", "--streams", "4"]),
                             ("--streaming", ["--streaming"]),
                             ("offline", [])):
-            buf = io.StringIO()
             gk.LAUNCHES = 0
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                preds, metrics = eval_main(base + extra)
+            (preds, metrics), text = run_driver(eval_main, base + extra)
             secs = time.perf_counter() - t0
             launches = gk.LAUNCHES
             total += launches
-            text = buf.getvalue()
             rate = [l for l in text.splitlines() if l.startswith("eval:")]
             print(f"[13] eval driver {name}: {rate[0] if rate else 'no eval line'}"
                   f" ({secs:.2f} s in all); K1 launches {launches}; metrics "
@@ -1076,6 +1088,189 @@ def phase_driver():
     return total
 
 
+DRIVER_OVERRIDES = ["synthetic_samples=4", "evaluation.interval=1",
+                    "evaluation.max_samples=2", "log_interval=1"]
+
+
+def run_driver(main, argv):
+    """A driver's main(argv) in process; returns (its result, its stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    return result, buf.getvalue()
+
+
+def check_driver_steps(tag, res, want):
+    """Every step of a train-driver run launched K1-K4 `want` times."""
+    bad = [s for s in res["steps"] if tuple(s["launches"]) != want]
+    print(f"[14] {tag}: launches per step (K1, K2, K3, K4) "
+          f"{[tuple(s['launches']) for s in res['steps']]}, expected {want}")
+    check(res["steps"] and not bad, f"{tag}: steps launched {bad}")
+
+
+def phase_train_driver(cfg, card):
+    """`python -m racformer_tpu_torch.train` in process: a run, its resume,
+    the eval driver on the work dir, and 2 steps on a nuScenes-layout
+    training split. Returns the (K1, K2, K3, K4) launches of the phase, the
+    median synchronized ms of a synthetic-data step after the first, and
+    the phase's peak memory."""
+    import tempfile
+
+    from racformer_tpu_torch.data import SyntheticDataset
+    from racformer_tpu_torch.eval import OfflineEvaluator
+    from racformer_tpu_torch.eval.__main__ import main as eval_main
+    from racformer_tpu_torch.train.__main__ import main as train_main
+
+    layers = int(cfg["decoder"]["num_layers"])
+    accum = int(cfg.get("accumulate_steps", 1))
+    want = (0, 2 * SITES * layers * accum, SITES * layers * accum,
+            SITES * layers * accum)
+    totals = np.zeros(4, np.int64)
+    blocks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        wd = Path(tmp) / "wd"
+        runs, outs = {}, {}
+        for name, extra in (("A", ["--max-steps", "2"]),
+                            ("B", ["--max-steps", "4", "--resume"])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res, out = run_driver(train_main, [
+                "--config", str(CONFIG), "--synthetic", "--work-dir", str(wd),
+                "--ema", "--match-stats", *extra, "--override",
+                *DRIVER_OVERRIDES])
+            secs = time.perf_counter() - t0
+            totals += launch_counts()
+            runs[name], outs[name] = res, out
+            blocks += [bl["ms"] / bl["steps"] for bl in res["blocks"]]
+            check("training done" in out, f"run {name}: no 'training done'")
+            saves = res["saves"]
+            print(f"[14] run {name} ({' '.join(extra)} --ema --match-stats): "
+                  f"steps {res['start_step'] + 1}..{res['last_step']} in "
+                  f"{secs:.2f} s in all; {card}")
+            for s in res["steps"]:
+                print(f"[14]   step {s['step'] + 1}: host ms {s['host_ms']:.1f} "
+                      f"(no sync), loader wait ms {s['wait_ms']:.2f}")
+            print(f"[14]   synchronized ms per flush block (log_interval=1: "
+                  f"one step each, the metrics fetch included): "
+                  f"{[round(b['ms'], 1) for b in res['blocks']]}")
+            for sv in saves:
+                print(f"[14]   checkpoint step {sv['step']}: save + verify "
+                      f"{sv['seconds']:.2f} s, {sv['bytes']} B, attempts "
+                      f"{sv['attempts']}, verified {sv['verified']}")
+            for ev in res["evals"]:
+                print(f"[14]   in-training eval @ {ev['step']}: "
+                      f"{ev['samples']} samples offline in {ev['seconds']:.2f} "
+                      f"s, K1 launches {ev['k1_launches']}, NDS "
+                      f"{ev.get('metrics', {}).get('NDS')}")
+            check(saves and all(sv["verified"] for sv in saves),
+                  f"run {name}: a checkpoint failed verification")
+            check_driver_steps(f"run {name}", res, want)
+            check(all(ev["k1_launches"] == 18 * ev["samples"] > 0
+                      for ev in res["evals"]) and len(res["evals"]) == 1,
+                  f"run {name}: in-training eval K1 launches {res['evals']}")
+            if name == "A":
+                del res["model"]  # free run A's model before run B builds its own
+        a, b = runs["A"], runs["B"]
+        check("resumed from step 2" in outs["B"],
+              "run B did not resume from step 2")
+        same = b["restored_digest"] == a["digest"]
+        print(f"[14] run B resumed from step 2: restored state digest "
+              f"{b['restored_digest'][:16]} against run A's saved "
+              f"{a['digest'][:16]}: {'bitwise equal' if same else 'DIFFER'}")
+        check(same, "the restored state differs from the saved one")
+        records = [json.loads(line) for line in
+                   (wd / "metrics.jsonl").read_text().splitlines()]
+        val = [r["step"] for r in records if r.get("phase") == "val"]
+        train = [r["step"] for r in records if "phase" not in r]
+        print(f"[14] metrics.jsonl: train records at steps {train}, val "
+              f"records at steps {val}")
+        check(train and val == [2, 4], "metrics.jsonl: records missing")
+        best = json.loads((wd / "best" / "metrics.json").read_text())
+        print(f"[14] best/metrics.json: step {best['step']}, NDS {best['NDS']}")
+        check((wd / "best" / "checkpoints" / str(best["step"]) / "state.pth")
+              .is_file(), "no best checkpoint")
+        missing = [f"dec_{l}/match_epoch{e}" for l in range(layers)
+                   for e in range(2) if not (wd / "match_stats" / f"dec_{l}"
+                                             / "rank_0"
+                                             / f"match_epoch{e}.json").is_file()]
+        print(f"[14] match statistics: {layers} layers x 2 epochs, missing "
+              f"{missing}")
+        check(not missing, f"match statistics missing: {missing}")
+
+        # the eval driver on the work dir against the in-memory model that
+        # saved its checkpoint, with deterministic algorithms (index_add_
+        # otherwise adds in the order its atomics land)
+        model = b["model"].eval()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            (preds, metrics), out = run_driver(eval_main, [
+                "--config", str(CONFIG), "--synthetic", "--max-samples", "2",
+                "--checkpoint", str(wd)])
+            secs = time.perf_counter() - t0
+            driver_k1 = launch_counts()[0]
+            totals[0] += driver_k1
+            ds = SyntheticDataset(
+                num_samples=2, num_cams=model.num_cams,
+                num_frames=model.num_frames, hw=model.image_hw,
+                max_radar_points=cfg["radar"]["max_points"], max_gt=model.max_gt)
+            ecfg = dict(cfg.get("eval_cfg", {}), legacy_version="v1.0.0")
+            want_preds, _, _ = OfflineEvaluator(model, eval_cfg=ecfg).run(ds)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        exact = len(preds) == len(want_preds) == 2 and all(
+            np.array_equal(p[k], w[k]) for p, w in zip(preds, want_preds)
+            for k in w)
+        print(f"[14] eval driver --checkpoint <work_dir>: "
+              f"{[l for l in out.splitlines() if l.startswith(('restored', 'eval:'))]}"
+              f" in {secs:.2f} s; K1 launches {driver_k1}; predictions against "
+              f"the in-memory model's (deterministic algorithms): "
+              f"{'bitwise equal' if exact else 'DIFFER'}")
+        if not exact:
+            close = all(decoded_match(p, w)[0] for p, w in zip(preds, want_preds))
+            print(f"[14] not bitwise; within phase 5's bounds: {close}")
+            check(close, "eval driver predictions disagree with the model's")
+        check(driver_k1 == 18 * 2, f"eval driver: K1 launched {driver_k1}")
+        del model, b, runs
+        torch.cuda.empty_cache()
+
+        # 2 steps on a nuScenes-layout training split
+        t0 = time.perf_counter()
+        ann = write_nuscenes_split(Path(tmp), "nuscenes_infos_train_sweep.pkl")
+        print(f"[14] wrote a nuScenes-layout training split in "
+              f"{time.perf_counter() - t0:.2f} s")
+        reset_launch_counts()
+        res, out = run_driver(train_main, [
+            "--config", str(CONFIG), "--work-dir", str(Path(tmp) / "nusc"),
+            "--max-steps", "2", "--override", f"data.train.ann_file={ann}",
+            "evaluation.interval=0", "log_interval=1"])
+        totals += launch_counts()
+        for s in res["steps"]:
+            print(f"[14] nuScenes split step {s['step'] + 1}: host ms "
+                  f"{s['host_ms']:.1f}, loader wait ms {s['wait_ms']:.2f} "
+                  f"(JPEG decode, ida_aug, bev_aug in the loader's threads)")
+        check(res["last_step"] == 2, "nuScenes split: not 2 steps")
+        check_driver_steps("nuScenes split", res, want)
+        rec = [json.loads(line) for line in
+               (Path(tmp) / "nusc" / "metrics.jsonl").read_text().splitlines()]
+        check(all(np.isfinite(r["loss_total"]) for r in rec),
+              "nuScenes split: non-finite loss")
+        del res
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(blocks[1:])
+    print(f"[14] driver step, synchronized by each step's metrics fetch: "
+          f"median {steady:.2f} ms over the synthetic runs' steps 2..4 "
+          f"{[round(x, 1) for x in blocks[1:]]}; peak device memory of the "
+          f"phase: {peak} B ({peak / 2**30:.2f} GiB); {card}")
+    return tuple(int(n) for n in totals), steady, peak
+
+
 TRAIN_STEPS = 5
 # the kernels of one K3 call (csrc/patch_scatter.cu), as the profiler names them
 K3_KERNELS = ("count_chunks", "scan_chunks", "fill_chunks", "accumulate_tiles",
@@ -1085,10 +1280,9 @@ SITES = 3  # sampling sites per decoder iteration: image, radar BEV, LSS BEV
 
 def launch_counts():
     """(K1, K2, K3, K4) launch counters."""
-    from racformer_tpu_torch.ops import gather_kernel as gk
-    from racformer_tpu_torch.ops import scatter_kernel as sk
+    from racformer_tpu_torch.train.__main__ import launch_counts as counts
 
-    return (gk.LAUNCHES, gk.GATHER_LAUNCHES, sk.LAUNCHES, gk.CORNER_LAUNCHES)
+    return counts()
 
 
 def reset_launch_counts():
@@ -1729,6 +1923,7 @@ def main(argv):
     torch.cuda.empty_cache()
     phase_train_small(dev)
     drv_launches = phase_driver()
+    train_drv, drv_steady, drv_peak = phase_train_driver(cfg, card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
@@ -1738,11 +1933,16 @@ def main(argv):
           f"peak memory {ms_peak / 2**30:.2f} GiB; offline {off_rate:.3f} "
           f"samples/s; train step (batch 2, 2 microbatches) "
           f"first {tfirst:.2f} ms, steady {tsteady:.2f} ms, peak memory "
-          f"{tpeak / 2**30:.2f} GiB")
-    k1_launches = launches + ms_launches + off_launches + drv_launches
+          f"{tpeak / 2**30:.2f} GiB; the train driver's step {drv_steady:.2f} "
+          f"ms, peak {drv_peak / 2**30:.2f} GiB")
+    k1_launches = launches + ms_launches + off_launches + drv_launches + \
+        train_drv[0]
     print(f"[-] K1 launches on the eval paths: {k1_launches} = streaming "
           f"{launches} + {MS_STREAMS} streams {ms_launches} + offline "
-          f"{off_launches} + eval driver {drv_launches}")
+          f"{off_launches} + eval driver {drv_launches} + train driver's evals "
+          f"and the eval driver on its work dir {train_drv[0]}")
+    print(f"[-] K2, K3, K4 launches: train steps (phase 8) {tlaunches[1:]} + "
+          f"train driver (phase 14) {train_drv[1:]}")
     kernels = [{
         "name": "gather_fold", "route": "cuda",
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
@@ -1750,15 +1950,15 @@ def main(argv):
         "launches": k1_launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}]
-    for (name, replaces), n in zip((
+    for (name, replaces), n, m in zip((
             ("patch_gather", "racformer_tpu/ops/gather_kernel.py:53"),
             ("patch_scatter", "racformer_tpu/ops/scatter_kernel.py:47"),
             ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
-            tlaunches[1:]):
+            tlaunches[1:], train_drv[1:]):
         st = patch[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",
-                        "replaces": replaces, "launches": n,
+                        "replaces": replaces, "launches": n + m,
                         "max_abs_err": st["err"], "ms": st["ms"],
                         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"],

@@ -15,9 +15,12 @@ chooses. Prints `eval: N samples, X samples/s` and the metrics as JSON.
 
 Checkpoints: a torch `.pth` / `.pt` state dict (the reference's parameter
 names, which are the port's; its `version` field sets the legacy box
-convention), or a pickled `{'params': ..., 'batch_stats': ...}` file with
-numpy leaves (converted by `tools.convert_weights.state_dict_from_jax`).
-Without one the model has seeded random weights.
+convention), a pickled `{'params': ..., 'batch_stats': ...}` file with
+numpy leaves (converted by `tools.convert_weights.state_dict_from_jax`), or
+the port train driver's work dir (its newest checkpoint's weights and
+BatchNorm statistics). A JAX work dir of orbax checkpoints, or a pickle of
+JAX arrays, is refused: `scripts/jax_checkpoint_to_torch.py` converts it.
+Without a checkpoint the model has seeded random weights.
 """
 
 from __future__ import annotations
@@ -29,9 +32,7 @@ import pickle
 
 import torch
 
-ROADMAP_CONVERTER = ("reading it needs JAX; convert it to a pickle of numpy "
-                     "leaves first (the converter script is queued in "
-                     "ROADMAP.md §1)")
+from ..tools.convert_weights import CONVERTER, NumpyOnlyUnpickler
 
 
 def parse_args(argv=None):
@@ -60,14 +61,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_dataset(cfg, model, args):
-    """VoD, synthetic or nuScenes, as `val.py` chooses."""
+def build_dataset(cfg, model, synthetic: bool, max_samples=None):
+    """The val split: VoD, synthetic or nuScenes, as `val.py` chooses (and
+    `train.py` for its in-training eval), capped at `max_samples`."""
     from ..data import NuScenesRadarDataset, SyntheticDataset
 
-    max_samples = args.max_samples or cfg.get("max_samples")
     ann = cfg["data"]["val"]["ann_file"]
     is_vod = cfg.get("dataset_type") == "vod"
-    if is_vod and os.path.exists(ann) and not args.synthetic:
+    if is_vod and os.path.exists(ann) and not synthetic:
         from ..data.vod import VoDDataset
 
         return VoDDataset(
@@ -75,7 +76,7 @@ def build_dataset(cfg, model, args):
             image_hw=model.image_hw,
             max_radar_points=cfg["radar"]["max_points"],
             max_gt=model.max_gt, max_samples=max_samples)
-    if args.synthetic or not os.path.exists(ann):
+    if synthetic or not os.path.exists(ann):
         return SyntheticDataset(
             num_samples=max_samples or 8, num_cams=model.num_cams,
             num_frames=model.num_frames, hw=model.image_hw,
@@ -90,23 +91,19 @@ def build_dataset(cfg, model, args):
         training=False, max_samples=max_samples)
 
 
-class _NumpyOnlyUnpickler(pickle.Unpickler):
-    """Refuses a pickle whose objects come from JAX (the port imports
-    none of it)."""
-
-    def find_class(self, module, name):
-        if module.split(".")[0] in ("jax", "jaxlib", "flax", "orbax"):
-            raise SystemExit(f"the checkpoint holds {module}.{name} objects: "
-                             f"{ROADMAP_CONVERTER}")
-        return super().find_class(module, name)
-
-
 def load_checkpoint(model, path: str, legacy_version: str) -> str:
     """Load `path` into `model`; returns the legacy box-convention version
     it names (`legacy_version` when it names none)."""
     if os.path.isdir(path):
-        raise SystemExit(f"{path} is a directory (a JAX training work_dir "
-                         f"of orbax checkpoints): {ROADMAP_CONVERTER}")
+        from ..train.checkpoint import CheckpointManager, checkpoint_steps
+
+        if not checkpoint_steps(path):
+            raise SystemExit(f"{path} holds no checkpoint of the port's train "
+                             f"driver (a JAX work_dir of orbax checkpoints "
+                             f"needs JAX: convert it with {CONVERTER})")
+        step = CheckpointManager(path, verify=False).restore_latest_eval(model)
+        print(f"restored step {step} from {path}")
+        return legacy_version
     if path.endswith((".pth", ".pt")):
         ckpt = torch.load(path, map_location="cpu", weights_only=False)
         model.load_state_dict(ckpt.get("state_dict", ckpt))
@@ -114,7 +111,7 @@ def load_checkpoint(model, path: str, legacy_version: str) -> str:
     from ..tools.convert_weights import state_dict_from_jax
 
     with open(path, "rb") as f:
-        variables = _NumpyOnlyUnpickler(f).load()
+        variables = NumpyOnlyUnpickler(f).load()
     legacy_version = variables.pop("version", legacy_version)
     model.load_state_dict(state_dict_from_jax(variables, model))
     return legacy_version
@@ -147,7 +144,8 @@ def main(argv=None):
         legacy_version = load_checkpoint(model, args.checkpoint,
                                          legacy_version)
     model.eval()
-    dataset = build_dataset(cfg, model, args)
+    dataset = build_dataset(cfg, model, args.synthetic,
+                            args.max_samples or cfg.get("max_samples"))
     is_vod = cfg.get("dataset_type") == "vod"
 
     ecfg = dict(cfg.get("eval_cfg", {}))

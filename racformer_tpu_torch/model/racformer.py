@@ -59,13 +59,18 @@ class RaCFormer(nn.Module):
                  depth_bins: int = 96, bev_size=(128, 128),
                  num_decoder_layers: int = 6,
                  trunk_dtype: torch.dtype = torch.bfloat16,
-                 query_denoising: bool = True, max_gt: int = 64):
+                 query_denoising: bool = True, max_gt: int = 64,
+                 bn_frame0_only: bool = False):
         """Arguments as the JAX `RaCFormer`'s fields. `decoder` is the
         config file's decoder block (num_layers, d_region_list, num_points,
         ...), merged over the defaults; its `gather_dtype` sets the BEV value
-        maps' storage dtype."""
+        maps' storage dtype. `bn_frame0_only` (train mode only): the BEV
+        branches run frame 0 in train mode and the history frames in eval
+        mode without gradients, the reference's exact BatchNorm semantics;
+        off, they run every frame of the window in train mode."""
         super().__init__()
         self.num_cams, self.num_frames = num_cams, num_frames
+        self.bn_frame0_only = bn_frame0_only
         self.embed_dims, self.num_levels, self.num_groups = embed_dims, num_levels, num_groups
         self.image_hw = tuple(image_hw)
         self.bev_size = tuple(bev_size)
@@ -186,42 +191,96 @@ class RaCFormer(nn.Module):
                 lidar2img, img2lidar, time_diff, gt):
         B, T, N, H, W, _ = imgs.shape
         ny, nx = self.bev_size
-        feat_cat, lss_bev, radar_bev, depth_logits = self._encode(
-            imgs.reshape(B * T, N, H, W, 3),
-            radar_points.reshape(B * T, *radar_points.shape[2:]),
-            radar_mask.reshape(B * T, -1),
-            radar_depth.reshape(B * T, N, H, W),
-            radar_rcs.reshape(B * T, N, H, W),
-            img2lidar.reshape(B * T, N, 4, 4))
-        lss_bev = lss_bev.reshape(B, T, ny, nx, -1)
-        radar_bev = radar_bev.reshape(B, T, ny, nx, -1)
-        if self.training:
-            # history frames give the BEV branches no gradient (the
-            # reference runs them in eval mode under no_grad)
-            lss_bev = torch.cat([lss_bev[:, :1], lss_bev[:, 1:].detach()], 1)
-            radar_bev = torch.cat([radar_bev[:, :1], radar_bev[:, 1:].detach()],
-                                  1)
+        if self.training and self.bn_frame0_only and T > 1:
+            feat_cat, lss_bev, radar_bev, depth_logits = self._encode_frame0_bn(
+                imgs, radar_points, radar_mask, radar_depth, radar_rcs,
+                img2lidar)
+        else:
+            feat_cat, lss_bev, radar_bev, depth_logits = self._encode(
+                imgs.reshape(B * T, N, H, W, 3),
+                radar_points.reshape(B * T, *radar_points.shape[2:]),
+                radar_mask.reshape(B * T, -1),
+                radar_depth.reshape(B * T, N, H, W),
+                radar_rcs.reshape(B * T, N, H, W),
+                img2lidar.reshape(B * T, N, 4, 4))
+            lss_bev = lss_bev.reshape(B, T, ny, nx, -1)
+            radar_bev = radar_bev.reshape(B, T, ny, nx, -1)
+            depth_logits = depth_logits.reshape(
+                B, T, *depth_logits.shape[1:])[:, 0]
+            if self.training:
+                # history frames give the BEV branches no gradient (the
+                # reference runs them in eval mode under no_grad)
+                lss_bev = torch.cat([lss_bev[:, :1], lss_bev[:, 1:].detach()],
+                                    1)
+                radar_bev = torch.cat(
+                    [radar_bev[:, :1], radar_bev[:, 1:].detach()], 1)
         outs = self._decode(feat_cat.reshape(B, T, *feat_cat.shape[1:]),
                             lss_bev, radar_bev, lidar2img, time_diff, **gt)
-        outs["depth_logits"] = depth_logits.reshape(
-            B, T, *depth_logits.shape[1:])[:, 0]
+        outs["depth_logits"] = depth_logits
         return outs
 
+    def _encode_frame0_bn(self, imgs, radar_points, radar_mask, radar_depth,
+                          radar_rcs, img2lidar):
+        """`bn_frame0_only`: the trunk over every frame, then the BEV
+        branches over frame 0 in train mode and over frames 1..T-1 in eval
+        mode (running statistics, left unchanged) without gradients."""
+        B, T, N, H, W, _ = imgs.shape
+        feat_cat, lss_feat = self._trunk(imgs.reshape(B * T, N, H, W, 3))
+        lss_feat = lss_feat.reshape(B, T, *lss_feat.shape[1:])
+        inputs = (lss_feat, radar_points, radar_mask, radar_depth, radar_rcs,
+                  img2lidar)
+        lss0, radar0, depth_logits = self._bev_branches(
+            *[a[:, 0] for a in inputs])
+        branches = (self.img_lss_view_transformer, self.radar_voxel_encoder,
+                    self.radar_bev_conv)
+        for m in branches:
+            m.eval()
+        try:
+            with torch.no_grad():
+                lssr, radarr, _ = self._bev_branches(
+                    *[a[:, 1:].reshape(B * (T - 1), *a.shape[2:])
+                      for a in inputs])
+        finally:
+            for m in branches:
+                m.train()
+        ny, nx = self.bev_size
+        lss_bev = torch.cat([lss0[:, None], lssr.reshape(B, T - 1, ny, nx, -1)],
+                            1)
+        radar_bev = torch.cat(
+            [radar0[:, None], radarr.reshape(B, T - 1, ny, nx, -1)], 1)
+        return feat_cat, lss_bev, radar_bev, depth_logits
 
 CONFIG_FIELDS = ("num_cams", "num_frames", "embed_dims", "num_query",
-                 "num_clusters", "num_levels", "num_groups", "image_hw",
-                 "pc_range", "depth_bins", "bev_size", "query_denoising",
-                 "max_gt")
+                 "num_clusters", "num_levels", "num_groups", "num_classes",
+                 "decoder", "image_hw", "pc_range", "depth_bins", "bev_size",
+                 "query_denoising", "max_gt", "bn_frame0_only")
 
 
 def config_kwargs(cfg) -> dict:
     """`RaCFormer`'s arguments from a config (a dict of the config file's
-    names): the `model` block's fields, one class per name of
-    `class_names`, the `decoder` block."""
-    mcfg = dict(cfg["model"])
-    kwargs = {k: mcfg[k] for k in CONFIG_FIELDS if k in mcfg}
-    kwargs["num_classes"] = len(cfg["class_names"])
-    kwargs["decoder"] = dict(cfg.get("decoder") or {})
+    names), as `train.py` builds the JAX model's: the `model` block's
+    fields, one class per name of `class_names` unless the block names
+    `num_classes`, the `decoder` block unless the model block has one.
+
+    A field of the `model` block that the port cannot honour (the JAX
+    model's `trunk_dtype`, `head_dtype`, `fused_gather`,
+    `num_decoder_layers`, or an unknown name) raises a ValueError, as does
+    a decoder `remat_policy` other than "full" (the port checkpoints each
+    decoder iteration whole)."""
+    kwargs = dict(cfg["model"])
+    unknown = sorted(set(kwargs) - set(CONFIG_FIELDS))
+    if unknown:
+        raise ValueError(f"model fields the port cannot honour: {unknown} "
+                         f"(it takes {list(CONFIG_FIELDS)})")
+    if "num_classes" not in kwargs and cfg.get("class_names"):
+        kwargs["num_classes"] = len(cfg["class_names"])
+    kwargs["decoder"] = dict(kwargs.get("decoder") or cfg.get("decoder") or {})
+    policy = kwargs["decoder"].pop("remat_policy", None) or "full"
+    if policy != "full":
+        raise ValueError(f"decoder.remat_policy={policy!r} is not ported: the "
+                         f"port recomputes each decoder iteration whole "
+                         f"(\"full\"); other policies are queued in "
+                         f"ROADMAP.md §1")
     return kwargs
 
 

@@ -12,6 +12,11 @@ from the config, and BN step counters) keep the port model's own values.
 `grads_from_jax` carries a gradient tree (which has the params' structure)
 across the same way, for the parameters only.
 
+`load_pretrained` merges a pretrained checkpoint (a `.pth` / `.pt` state
+dict or a pickle of numpy arrays, in the reference's names, which are the
+port's) into a model, after `apply_revise_keys`' prefix remap: the
+train driver's `load_from`.
+
 The rule tables are a copy of the JAX package's (the port imports nothing
 of it); `tests/test_torch_config.py` holds them equal on every key of the
 flagship port model. Each rule names its forward transform (`_conv`,
@@ -21,11 +26,40 @@ them); this module only inverts them.
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Dict
 
 import numpy as np
 import torch
+
+# reads an orbax work_dir, or a pickle whose leaves are JAX arrays, with the
+# JAX package and writes a checkpoint the port reads
+CONVERTER = "scripts/jax_checkpoint_to_torch.py"
+
+
+class NumpyOnlyUnpickler(pickle.Unpickler):
+    """Refuses a pickle whose objects come from JAX (the port imports
+    none of it)."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] in ("jax", "jaxlib", "flax", "orbax"):
+            raise SystemExit(f"the file holds {module}.{name} objects: reading "
+                             f"it needs JAX; convert it with {CONVERTER}")
+        return super().find_class(module, name)
+
+
+def apply_revise_keys(state_dict: Dict, revise_keys) -> Dict:
+    """Remap key prefixes, e.g. ('backbone', 'img_backbone') (a copy of the
+    JAX package's)."""
+    out = {}
+    for k, v in state_dict.items():
+        for old, new in revise_keys or []:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        out[k] = v
+    return out
 
 
 def _conv(w):  # OIHW -> HWIO
@@ -319,3 +353,50 @@ def grads_from_jax(grads_np: Dict, model: torch.nn.Module) -> Dict:
     model's layout."""
     names = {n for n, _ in model.named_parameters()}
     return state_dict_from_jax({"params": grads_np}, model, keys=names)
+
+
+def _tensors(sd: Dict) -> Dict:
+    return {k: v for k, v in sd.items()
+            if torch.is_tensor(v) or isinstance(v, np.ndarray)}
+
+
+@torch.no_grad()
+def load_pretrained(path: str, model: torch.nn.Module, revise_keys=None,
+                    state_dict=None) -> torch.nn.Module:
+    """Copy into `model`, in place, every tensor of a pretrained checkpoint
+    whose name (after `revise_keys`) and shape match one of the model's
+    state-dict entries, parameters and BatchNorm statistics alike; the
+    entries the config recomputes (`IGNORED_KEYS`) are skipped. `path` is a
+    `.pth` / `.pt` file (its `state_dict` entry or the file itself) or a
+    pickle of numpy arrays (one that holds JAX objects is refused); pass
+    `state_dict` to reuse an already loaded one. Prints the number of keys
+    not converted and the first of them, as the JAX package's
+    `load_pretrained` does, and returns the model."""
+    if state_dict is not None:
+        sd = _tensors(state_dict)
+    elif path.endswith((".pth", ".pt")):
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        sd = _tensors(ckpt.get("state_dict", ckpt))
+    else:
+        with open(path, "rb") as f:
+            sd = _tensors(NumpyOnlyUnpickler(f).load())
+    own = model.state_dict()
+    loaded, unmatched = 0, []
+    for key, val in apply_revise_keys(sd, revise_keys).items():
+        if any(p.search(key) for p in IGNORED_KEYS):
+            continue
+        if key not in own:
+            unmatched.append(key)
+            continue
+        val = torch.as_tensor(val)
+        if tuple(val.shape) != tuple(own[key].shape):
+            unmatched.append(f"{key} (shape {tuple(val.shape)} vs "
+                             f"{tuple(own[key].shape)})")
+            continue
+        own[key].copy_(val)
+        loaded += 1
+    print(f"[convert_weights] {loaded} tensors loaded from {path}")
+    if unmatched:
+        print(f"[convert_weights] {len(unmatched)} keys not converted "
+              f"(first: {unmatched[:3]})")
+    return model

@@ -1,17 +1,32 @@
 """Training driver of the port (counterpart of the repository's `train.py`),
-on one CUDA device:
+on one CUDA device unless `--device cpu` is asked for:
 
     python -m racformer_tpu_torch.train \\
         --config racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py \\
-        --synthetic --max-steps 5
+        [--work-dir DIR] [--override k=v ...] [--resume] [--synthetic] \\
+        [--load-from FILE] [--ema] [--match-stats] [--fp16-loss-scale S]
 
-Seeded random weights, the config's model, optimizer, batch size per device
-and accumulation steps (clamped to a divisor of the batch), batches of the
-port's `SyntheticDataset` drawn from a fresh permutation each epoch, the
-depth-loss weight of `DepthWeightCurriculum`, a cosine schedule over
-`steps_per_epoch * total_epochs` steps (or `--max-steps`). Prints one JSON
-line of metrics per step. Checkpoints, EMA, in-training eval, real datasets
-and several devices are not ported yet.
+Seeded random weights (or `load_from` / `--load-from`, through
+`revise_keys`), the config's model, optimizer, batch size per device and
+accumulation steps (clamped to a divisor of the batch), the dataset
+`train.py` builds (synthetic, VoD or nuScenes with its augmentation) read
+through `PrefetchLoader` in `data_workers` threads, each epoch's batches
+from a fresh permutation, the depth-loss weight of `DepthWeightCurriculum`,
+a cosine schedule over `steps_per_epoch * total_epochs` steps (or
+`--max-steps`).
+
+The metrics stay on the device and are fetched in one block every
+`log_interval` steps into `MetricLogger` (`<work_dir>/metrics.jsonl`).
+A verified checkpoint is written at every epoch end and at the last step
+(`train.checkpoint`, the EMA inside with `--ema`); `--resume` continues from
+the newest. Every `evaluation.interval` epochs the current weights (not the
+EMA) are evaluated on the val split (`evaluation.mode` offline or
+streaming, capped at `evaluation.max_samples`), the metrics logged as
+`phase: "val"`, and a new best of `evaluation.save_best` saved under
+`<work_dir>/best`. The random draws come from a generator seeded with
+seed + 17 at every start, a resumed run's too, as `train.py` restarts its
+key. `--distributed` (DDP) and decoder remat policies other than "full" are
+not ported and are refused.
 """
 
 from __future__ import annotations
@@ -19,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import time
 
 import numpy as np
@@ -31,6 +47,39 @@ from .hooks import DepthWeightCurriculum
 from .hostdata import epoch_order, host_batch_indices
 from .optim import Optimizer
 from .step import make_train_step
+
+HOST_KEYS = ("token", "scene", "timestamp")  # metadata, not model inputs
+DDP_REFUSAL = ("--distributed (DDP over several devices) is not ported: it "
+               "is the next training item of ROADMAP.md §1")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", required=True)
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--override", nargs="+", default=[])
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--load-from", default=None,
+                   help="pretrained weights (.pth / .pt or a numpy pickle)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on the synthetic dataset (no nuScenes needed)")
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ema", action="store_true",
+                   help="keep an EMA of the weights in the checkpoints")
+    p.add_argument("--fp16-loss-scale", type=float, default=None,
+                   help="static loss scale (the reference's fp16 = "
+                        "dict(loss_scale=512.)); also read from "
+                        "cfg.fp16['loss_scale']")
+    p.add_argument("--match-stats", action="store_true",
+                   help="dump per-decoder-layer Hungarian match statistics "
+                        "each epoch")
+    p.add_argument("--distributed", action="store_true",
+                   help="not ported (refused)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (the default) or cpu, which runs every kernel's "
+                        "plain version")
+    return p.parse_args(argv)
 
 
 def schedule(num_samples: int, batch: int, total_epochs: int,
@@ -57,13 +106,16 @@ def accumulation_steps(accum: int, batch: int) -> int:
 def batch_indices(seed: int, steps_per_epoch: int, num_samples: int,
                   batch: int):
     """step -> the dataset indices of that step's batch: each epoch a fresh
-    permutation of the dataset from (seed, epoch), as `train.py` draws."""
+    permutation of the dataset from (seed, epoch), as `train.py` draws.
+    Keeps the current and the next epoch's order, so the prefetcher can run
+    ahead across the boundary."""
     orders: dict = {}
 
     def indices(step: int) -> list:
         epoch = step // steps_per_epoch
         if epoch not in orders:
-            orders.clear()
+            for e in [k for k in orders if k < epoch - 1]:
+                del orders[e]
             orders[epoch] = epoch_order(seed, epoch, num_samples)
         return host_batch_indices(orders[epoch], step % steps_per_epoch,
                                   batch, 1, 0)
@@ -82,17 +134,47 @@ def synthetic_dataset(cfg, model: RaCFormer, batch: int) -> SyntheticDataset:
         max_gt=model.max_gt)
 
 
-def build(cfg, device, seed: int, max_steps=None):
+def train_dataset(cfg, model: RaCFormer, batch: int, synthetic: bool,
+                  seed: int):
+    """The training set `train.py` builds: synthetic when asked for or when
+    the config's `data.train.ann_file` is missing, else VoD or nuScenes
+    (training=True: random sweep interval, image and BEV augmentation)."""
+    ann = cfg["data"]["train"]["ann_file"]
+    if synthetic or not os.path.exists(ann):
+        return synthetic_dataset(cfg, model, batch)
+    if cfg.get("dataset_type") == "vod":
+        from ..data.vod import VoDDataset
+
+        return VoDDataset(
+            ann, data_root=cfg["data"]["train"].get("data_root", ""),
+            image_hw=model.image_hw,
+            max_radar_points=cfg["radar"]["max_points"],
+            max_gt=model.max_gt, training=True)
+    from ..data import NuScenesRadarDataset
+
+    return NuScenesRadarDataset(
+        ann, num_frames=model.num_frames,
+        frame_interval=tuple(cfg["data"]["train"].get("frame_interval",
+                                                      (4, 8))),
+        image_hw=model.image_hw,
+        ida_cfg=dict(cfg["ida_aug"]) if cfg.get("ida_aug") else None,
+        bev_aug_cfg=dict(cfg["bev_aug"]) if cfg.get("bev_aug") else None,
+        max_radar_points=cfg["radar"]["max_points"], max_gt=model.max_gt,
+        training=True, seed=seed)
+
+
+def build(cfg, device, seed: int, max_steps=None, synthetic: bool = True,
+          match_stats: bool = False, loss_scale: float = 0.0):
     """(model, optimizer, train_step, dataset, batch size) of a config (a
     dict of the config file's names): the model with seeded random weights
-    in train mode on `device`, the optimizer's schedule over
-    `schedule(...)`'s total steps."""
+    in train mode on `device`, the training set (`train_dataset`), the
+    optimizer's schedule over `schedule(...)`'s total steps."""
     with torch.device(device):
         model = RaCFormer(**config_kwargs(cfg))
     random_init_(model, torch.Generator().manual_seed(seed)).train()
     batch = int(cfg.get("batch_size_per_chip", 2))
     accum = accumulation_steps(int(cfg.get("accumulate_steps", 1)), batch)
-    dataset = synthetic_dataset(cfg, model, batch)
+    dataset = train_dataset(cfg, model, batch, synthetic, seed)
     _, total_steps = schedule(len(dataset), batch,
                               int(cfg.get("total_epochs", 36)), max_steps)
     opt = dict(cfg.get("optimizer", {}))
@@ -101,46 +183,234 @@ def build(cfg, device, seed: int, max_steps=None):
         weight_decay=opt.get("weight_decay", 0.01), total_steps=total_steps,
         warmup_steps=opt.get("warmup_steps", 500),
         clip_norm=opt.get("clip_norm", 35.0))
-    step = make_train_step(model, optimizer, dict(cfg.get("depth", {})), accum)
+    step = make_train_step(model, optimizer, dict(cfg.get("depth", {})), accum,
+                           match_stats=match_stats, loss_scale=loss_scale)
     return model, optimizer, step, dataset, batch
 
 
 def to_device(sample, device):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in sample.items()}
+    """A collated host batch on `device`, metadata left out; on a CUDA
+    device through pinned memory with non-blocking copies on the default
+    stream, so the copies are ordered before the step that reads them."""
+    pinned = torch.device(device).type == "cuda"
+    out = {}
+    for k, v in sample.items():
+        if k in HOST_KEYS or isinstance(v, list):
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.pin_memory().to(device, non_blocking=True) if pinned
+                  else t.to(device))
+    return out
+
+
+def launch_counts():
+    """(K1, K2, K3, K4) launch counters (real kernel launches only)."""
+    from ..ops import gather_kernel as gk
+    from ..ops import scatter_kernel as sk
+
+    return (gk.LAUNCHES, gk.GATHER_LAUNCHES, sk.LAUNCHES, gk.CORNER_LAUNCHES)
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", required=True)
-    p.add_argument("--synthetic", action="store_true",
-                   help="train on the synthetic dataset (the only one ported)")
-    p.add_argument("--max-steps", type=int, default=None)
-    p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic training is ported")
-    if not torch.cuda.is_available():
-        raise SystemExit("the train driver needs a CUDA device")
-    cfg = Config.fromfile(args.config)
-    device = torch.device("cuda")
+    """Runs the training; returns a summary for callers in process: the
+    work dir, the first and last step, the digests of the last save and of
+    a restored state, each step's host ms, loader wait and kernel launches,
+    each flush block's synchronized ms, each checkpoint save and in-training
+    eval, the model and the last eval's predictions."""
+    args = parse_args(argv)
+    if args.distributed:
+        raise SystemExit(DDP_REFUSAL)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("the train driver needs a CUDA device (pass --device "
+                         "cpu to run the plain versions on the CPU)")
+    device = torch.device(args.device)
+
+    from ..data.prefetch import PrefetchLoader
+    from ..tools.convert_weights import load_pretrained
+    from ..utils.logging import MetricLogger, backup_code
+    from .checkpoint import CheckpointManager
+    from .hooks import MatchStatsHook, ema_init, ema_update
+
+    cfg = Config.fromfile(args.config).merge_override(args.override)
+    try:
+        config_kwargs(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    work_dir = args.work_dir or os.path.join(
+        "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
+    os.makedirs(work_dir, exist_ok=True)
+    backup_code(work_dir)
+    with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
+        f.write(cfg.dump())
+
+    match_stats = bool(args.match_stats or cfg.get("match_stats"))
+    fp16 = dict(cfg.get("fp16") or {})
+    loss_scale = (args.fp16_loss_scale if args.fp16_loss_scale is not None
+                  else float(fp16.get("loss_scale", 0.0)))
     model, optimizer, train_step, dataset, batch = build(
-        cfg, device, args.seed, args.max_steps)
-    steps_per_epoch, total = schedule(
+        cfg, device, args.seed, args.max_steps, synthetic=args.synthetic,
+        match_stats=match_stats, loss_scale=loss_scale)
+    steps_per_epoch, total_steps = schedule(
         len(dataset), batch, int(cfg.get("total_epochs", 36)), args.max_steps)
-    indices = batch_indices(args.seed, steps_per_epoch, len(dataset), batch)
+
+    path = args.load_from or cfg.get("load_from")
+    if path and os.path.exists(path):
+        load_pretrained(path, model, cfg.get("revise_keys"))
+
+    ckpt = CheckpointManager(work_dir, max_keep=4)
+    ema = ema_init(model) if args.ema else None
+    start_step = 0
+    if args.resume:
+        restored = ckpt.restore_latest(model, optimizer, ema)
+        if restored:
+            start_step = restored
+            print(f"resumed from step {start_step}")
+
+    match_hook = (MatchStatsHook(os.path.join(work_dir, "match_stats"))
+                  if match_stats else None)
     curriculum = DepthWeightCurriculum(start_epoch=18)
+    logger = MetricLogger(work_dir, total_steps=total_steps)
     gen = torch.Generator().manual_seed(args.seed + 17)
-    for step in range(total):
-        sample = to_device(dataset.batch(indices(step)), device)
+
+    # --- the in-training eval, at true epoch boundaries ------------------
+    ev_cfg = dict(cfg.get("evaluation") or {})
+    eval_interval = int(ev_cfg.get("interval", 2))
+    eval_max = ev_cfg.get("max_samples")
+    eval_mode = str(ev_cfg.get("mode", "offline"))
+    is_vod = cfg.get("dataset_type") == "vod"
+    best_key = ev_cfg.get("save_best", "mAP3D_all" if is_vod else "NDS")
+    ev = {"dataset": None, "best": float("-inf"), "last_step": -1,
+          "best_mgr": None}
+    result = {"work_dir": work_dir, "start_step": start_step,
+              "restored_digest": ckpt.restored_digest,
+              "steps": [], "blocks": [], "saves": [], "evals": [],
+              "model": model, "eval_preds": None}
+
+    def run_eval(step):
+        if ev["last_step"] == step:
+            return
+        ev["last_step"] = step
+        from ..eval.__main__ import build_dataset
+        from ..eval.offline import OfflineEvaluator, detection_metrics
+        from ..eval.streaming import StreamingEvaluator, run_multistream
+
+        if ev["dataset"] is None:
+            ev["dataset"] = build_dataset(cfg, model, args.synthetic, eval_max)
+        ecfg = dict(cfg.get("eval_cfg", {}))
+        k1 = launch_counts()[0]
         t0 = time.perf_counter()
-        metrics = train_step(
-            sample, gen, depth_weight=curriculum.weight(step // steps_per_epoch))
-        torch.cuda.synchronize(device)
-        line = {"step": step + 1, "lr": optimizer.lr(step=step),
-                "step_ms": (time.perf_counter() - t0) * 1e3}
-        line.update({k: float(v) for k, v in metrics.items()})
-        print(json.dumps(line), flush=True)
+        model.eval()
+        try:
+            with torch.no_grad():
+                if eval_mode == "streaming":
+                    preds, gts, _ = run_multistream(
+                        StreamingEvaluator(model, eval_cfg=ecfg), ev["dataset"],
+                        streams=int(ev_cfg.get("streams", 1)))
+                else:
+                    preds, gts, _ = OfflineEvaluator(model, eval_cfg=ecfg).run(
+                        ev["dataset"], max_samples=eval_max)
+        finally:
+            model.train()
+        result["eval_preds"] = preds
+        result["evals"].append({
+            "step": step + 1, "samples": len(preds),
+            "seconds": time.perf_counter() - t0,
+            "k1_launches": launch_counts()[0] - k1})
+        if not gts:
+            return
+        metrics = detection_metrics(
+            preds, gts, is_vod=is_vod,
+            class_names=list(cfg.get("class_names", [])) or None,
+            front_only=bool(cfg.get("eval_front_only", False)))
+        scalars = {k: float(v) for k, v in metrics.items()
+                   if isinstance(v, (int, float))}
+        logger.log_eval(step + 1, scalars)
+        result["evals"][-1]["metrics"] = scalars
+        score = scalars.get(best_key)
+        if score is not None and score > ev["best"]:
+            ev["best"] = score
+            if ev["best_mgr"] is None:
+                ev["best_mgr"] = CheckpointManager(
+                    os.path.join(work_dir, "best"), max_keep=1, verify=False)
+            ev["best_mgr"].save(step + 1, model, optimizer)
+            with open(os.path.join(work_dir, "best", "metrics.json"), "w") as f:
+                json.dump({"step": step + 1, best_key: score, **scalars}, f)
+
+    # --- the loop --------------------------------------------------------
+    loader = PrefetchLoader(
+        dataset, batch_indices(args.seed, steps_per_epoch, len(dataset), batch),
+        total_steps, start_step=start_step,
+        num_workers=int(cfg.get("data_workers", 4)), prefetch=2,
+        put=lambda b: to_device(b, device))
+    log_every = int(cfg.get("log_interval", 10))
+    pending = []  # (step, device metrics, device gt refs) fetched in blocks
+    block_t0 = [None]
+
+    def flush():
+        if not pending:
+            return
+        keys = [k for k in pending[0][1] if not k.startswith("_")]
+        values = torch.stack([torch.stack([m[k].float() for k in keys])
+                              for _, m, _ in pending]).cpu().numpy()
+        for (s, m, gt), row in zip(pending, values):
+            logger.log_step(s, dict(zip(keys, row.tolist())),
+                            lr=optimizer.lr(step=s))
+            if match_hook is not None:
+                match_hook.record(
+                    s, {k: v for k, v in m.items() if k.startswith("_")},
+                    *[g.cpu().numpy() for g in gt])
+        result["blocks"].append({
+            "steps": len(pending),
+            "ms": (time.perf_counter() - block_t0[0]) * 1e3})
+        pending.clear()
+        block_t0[0] = None
+
+    step = start_step
+    try:
+        for step in range(start_step, total_steps):
+            epoch = step // steps_per_epoch
+            t0 = time.perf_counter()
+            if block_t0[0] is None:
+                block_t0[0] = t0
+            counts = launch_counts()
+            sample = loader.get(step)
+            t_got = time.perf_counter()
+            metrics = train_step(sample, gen,
+                                 depth_weight=curriculum.weight(epoch))
+            if ema is not None:
+                ema_update(ema, optimizer.params, step)
+            result["steps"].append({
+                "step": step, "host_ms": (time.perf_counter() - t0) * 1e3,
+                "wait_ms": (t_got - t0) * 1e3,
+                "launches": [b - a for a, b in zip(counts, launch_counts())]})
+            # no per-step host sync: the metrics stay on the device and are
+            # fetched in a block every `log_every` steps
+            pending.append((step, metrics,
+                            (sample["gt_labels"], sample["gt_mask"])
+                            if match_hook is not None else None))
+            if len(pending) >= log_every or step == total_steps - 1:
+                flush()
+            if (step + 1) % steps_per_epoch == 0 or step == total_steps - 1:
+                flush()
+                if match_hook is not None:
+                    match_hook.after_epoch(epoch)
+                result["saves"].append(ckpt.save(step + 1, model, optimizer,
+                                                 ema=ema))
+                # eval fires on true epoch boundaries only; a --max-steps
+                # run that stops mid-epoch skips it
+                if (eval_interval > 0 and (step + 1) % steps_per_epoch == 0
+                        and (epoch + 1) % eval_interval == 0):
+                    run_eval(step)
+    finally:
+        loader.close()
+        if match_hook is not None:
+            # spill a partial epoch's match statistics rather than drop them
+            match_hook.after_epoch(step // steps_per_epoch)
+        logger.close()
+    result["last_step"] = max(total_steps, start_step)
+    result["digest"] = ckpt.last_save["digest"] if ckpt.last_save else None
+    print("training done")
+    return result
 
 
 if __name__ == "__main__":

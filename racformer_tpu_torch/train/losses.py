@@ -12,12 +12,13 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.bbox_codec import normalize_bbox
 from ..ops.depth_bins import depth_to_sid_index
-from .matching import hungarian_assign, match_cost
+from .matching import assign_host, match_cost
 
 CODE_WEIGHTS = (2.0, 2.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
 
@@ -80,12 +81,19 @@ def _l1_loss(preds, targets, weights, norm):
 
 
 def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
+                   with_match: bool = False,
                    pos_norm: Optional[torch.Tensor] = None) -> Dict:
     """The head loss over all decoder layers, plus the DN losses when `outs`
     holds DN outputs. gt_bboxes: [B, G, 9] raw boxes; gt_labels: [B, G];
     gt_mask: [B, G]. Keys as the JAX package's: 'd{l}.loss_cls',
     'd{l}.loss_bbox' (and '_dn' variants) for the inner layers, 'loss_cls',
-    'loss_bbox' for the last, and 'loss_total'."""
+    'loss_bbox' for the last, and 'loss_total'.
+
+    `with_match=True` adds each layer's Hungarian assignment as host
+    arrays: '_matched_q' [L, B, G] int32, the query matched to each GT, and
+    '_match_cost' [L, B, G] float32, that pair's cost (the match statistics
+    `hooks.MatchStatsHook` dumps). Underscore keys are diagnostics, not
+    losses."""
     cls_scores = outs["all_cls_scores"]  # [L, B, Q, C]
     bbox_preds = outs["all_bbox_preds"]  # [L, B, Q, 10]
     L, B, Q, _ = cls_scores.shape
@@ -96,7 +104,9 @@ def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
         cost = match_cost(cls_scores.float(), bbox_preds.float(),
                           gt_bboxes[None], safe_labels[None], gt_mask[None],
                           CODE_WEIGHTS)  # [L, B, Q, G]
-    matched = hungarian_assign(cost)  # [L, B, G]
+    cost_host = cost.float().cpu().numpy()  # the assignment runs on the host
+    matched_host = assign_host(cost_host)  # [L, B, G]
+    matched = torch.from_numpy(matched_host.astype(np.int64)).to(dev)
     gt_norm = normalize_bbox(gt_bboxes)  # [B, G, 10]
 
     # scatter the GT onto the matched queries; invalid GT go to a dropped
@@ -147,4 +157,9 @@ def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
             losses[f"{key}_bbox_dn"] = torch.nan_to_num(lb)
             total = total + losses[f"{key}_cls_dn"] + losses[f"{key}_bbox_dn"]
     losses["loss_total"] = total
+    if with_match:
+        losses["_matched_q"] = matched_host.astype(np.int32)
+        losses["_match_cost"] = np.take_along_axis(
+            cost_host, matched_host[:, :, None, :].astype(np.int64), axis=2
+        )[:, :, 0, :].astype(np.float32)
     return losses

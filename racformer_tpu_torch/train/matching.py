@@ -1,6 +1,6 @@
 """Hungarian set matching for the DETR-style loss (port of
-`racformer_tpu/train/matching.py`: `match_cost`, `_lap_single`,
-`hungarian_assign`).
+`racformer_tpu/train/matching.py`: `match_cost`, `match_cost_cartesian`,
+`_lap_single`, `hungarian_assign`).
 
 The cost is computed on the device; the assignment runs on the host on the
 detached [L, B, Q, G] cost, copied once per call, with the JAX package's
@@ -54,6 +54,32 @@ def match_cost(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_mask,
     return torch.where(gt_mask[..., None, :], cost, torch.full_like(cost, BIG))
 
 
+def match_cost_cartesian(cls_scores, bbox_preds, gt_bboxes, gt_labels,
+                         gt_mask, code_weights=None, cls_weight=2.0,
+                         reg_weight=0.25, with_velo=True, alpha=0.25,
+                         gamma=2.0):
+    """The non-polar `HungarianAssigner3D` cost: focal class cost plus the
+    (code-weighted) L1 on cartesian normalized boxes, no angular term;
+    `with_velo=False` keeps the first 8 box dims only. Shapes and contract
+    as `match_cost`'s."""
+    eps = 1e-12
+    p = torch.sigmoid(cls_scores)
+    pos_cost = -torch.log(p + eps) * alpha * (1 - p) ** gamma
+    neg_cost = -torch.log(1 - p + eps) * (1 - alpha) * p ** gamma
+    idx = gt_labels.long()[..., None, :].expand(*p.shape[:-1], gt_labels.shape[-1])
+    cls_cost = torch.gather(pos_cost - neg_cost, -1, idx) * cls_weight
+    pred_w, gt_w = bbox_preds, normalize_bbox(gt_bboxes)
+    if code_weights is not None:
+        cw = torch.as_tensor(code_weights, dtype=bbox_preds.dtype,
+                             device=bbox_preds.device)
+        pred_w, gt_w = pred_w * cw, gt_w * cw
+    d = 10 if with_velo else 8
+    reg_cost = (pred_w[..., :, None, :d] - gt_w[..., None, :, :d]).abs().sum(-1)
+    cost = torch.nan_to_num(cls_cost + reg_cost * reg_weight, nan=100.0,
+                            posinf=100.0, neginf=-100.0)
+    return torch.where(gt_mask[..., None, :], cost, torch.full_like(cost, BIG))
+
+
 def lap_single(cost_gq: np.ndarray) -> np.ndarray:
     """Exact linear assignment of one [G, Q] cost matrix (G <= Q): the
     e-maxx Jonker-Volgenant formulation with a virtual column 0, in float32
@@ -95,11 +121,16 @@ def lap_single(cost_gq: np.ndarray) -> np.ndarray:
     return (match[1:] - 1).astype(np.int32)
 
 
+def assign_host(cost: np.ndarray) -> np.ndarray:
+    """cost: host [..., Q, G] float32 -> matched query of each GT [..., G]
+    (int32)."""
+    *batch, Q, G = cost.shape
+    out = np.stack([lap_single(c.T) for c in cost.reshape(-1, Q, G)])
+    return out.reshape(*batch, G)
+
+
 def hungarian_assign(cost: torch.Tensor) -> torch.Tensor:
     """cost: [..., Q, G] -> matched query of each GT [..., G] (int64, on
     the cost's device). One device-to-host copy of the detached cost."""
-    *batch, Q, G = cost.shape
-    flat = cost.detach().float().cpu().numpy().reshape(-1, Q, G)
-    out = np.stack([lap_single(c.T) for c in flat])
-    return torch.from_numpy(out.astype(np.int64)).reshape(*batch, G).to(
-        cost.device)
+    host = cost.detach().float().cpu().numpy()
+    return torch.from_numpy(assign_host(host).astype(np.int64)).to(cost.device)

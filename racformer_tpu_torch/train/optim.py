@@ -101,6 +101,15 @@ class Optimizer:
         self.count += 1
         return norm
 
+    def state_dict(self) -> Dict:
+        """AdamW's state (moments, step counts, groups) and the number of
+        updates made, which sets the schedule's position."""
+        return {"adamw": self.adamw.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params.values():
             p.grad = None

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..model.augment import (grid_mask, grid_mask_draws, photometric_distortion,
@@ -60,7 +61,8 @@ def split_microbatches(batch: Dict, accum_steps: int) -> List[Dict]:
 
 
 def make_train_step(model: RaCFormer, optimizer: Optimizer,
-                    depth_cfg: Optional[Dict] = None, accum_steps: int = 1):
+                    depth_cfg: Optional[Dict] = None, accum_steps: int = 1,
+                    match_stats: bool = False, loss_scale: float = 0.0):
     """Returns train_step(batch, generator=None, draws=None,
     depth_weight=2.0) -> metrics.
 
@@ -71,8 +73,17 @@ def make_train_step(model: RaCFormer, optimizer: Optimizer,
     microbatch) replaces the draws from `generator`. Metrics are the JAX
     step's: every loss term averaged over the microbatches, and
     'grad_norm', the global norm of the averaged gradients before clipping
-    (frozen parameters included)."""
+    (frozen parameters included).
+
+    `match_stats=True` adds the Hungarian assignment of every decoder layer
+    as host arrays '_matched_q' / '_match_cost' [L, B, G] in the batch's
+    sample order (`losses.detection_loss`); underscore keys are not
+    averaged. `loss_scale > 0` is the reference's static fp16 loss scaling:
+    each microbatch's objective is multiplied by it before `backward()` and
+    every gradient divided by it before the optimizer clips, so
+    'grad_norm' is the unscaled norm."""
     depth_cfg = dict(depth_cfg or {})
+    loss_scale = float(loss_scale or 0.0)
     depth_kw = {k: v for k, v in depth_cfg.items() if k in DEPTH_KEYS}
 
     def loss_fn(micro, draws, depth_weight, pos_norm, fg_norm):
@@ -87,7 +98,7 @@ def make_train_step(model: RaCFormer, optimizer: Optimizer,
                          dn=_to(draws["dn"], micro))
         losses = detection_loss(outs, micro["gt_bboxes"], micro["gt_labels"],
                                 micro["gt_mask"], num_classes=model.num_classes,
-                                pos_norm=pos_norm)
+                                with_match=match_stats, pos_norm=pos_norm)
         if "gt_depth" in micro:
             ld = depth_loss(outs["depth_logits"], micro["gt_depth"], **depth_kw,
                             weight=1.0, fg_norm=fg_norm) * depth_weight
@@ -108,12 +119,28 @@ def make_train_step(model: RaCFormer, optimizer: Optimizer,
                 min=1.0) / accum_steps
         optimizer.zero_grad()
         sums: Dict[str, torch.Tensor] = {}
+        aux: Dict[str, List[np.ndarray]] = {}
         for micro, d in zip(micros, draws):
             losses = loss_fn(micro, d, depth_weight, pos_norm, fg_norm)
-            (losses["loss_total"] / accum_steps).backward()
+            objective = losses["loss_total"] / accum_steps
+            if loss_scale > 0:
+                objective = objective * loss_scale
+            objective.backward()
             for k, v in losses.items():
-                sums[k] = sums.get(k, 0.0) + v.detach()
+                if k.startswith("_"):
+                    aux.setdefault(k, []).append(v)
+                else:
+                    sums[k] = sums.get(k, 0.0) + v.detach()
         metrics = {k: v / accum_steps for k, v in sums.items()}
+        # undo the interleave: microbatch a, row p was sample p * A + a
+        for k, parts in aux.items():
+            stacked = np.stack(parts, axis=2)  # [L, B / A, A, G]
+            metrics[k] = stacked.reshape(stacked.shape[0], -1,
+                                         *stacked.shape[3:])
+        if loss_scale > 0:
+            grads = [p.grad for p in optimizer.params.values()
+                     if p.grad is not None]
+            torch._foreach_div_(grads, loss_scale)
         metrics["grad_norm"] = optimizer.step()
         return metrics
 

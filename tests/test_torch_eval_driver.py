@@ -121,14 +121,14 @@ def test_numpy_variables_pickle_loads(tmp_path):
 
 def test_refusals(tmp_path, monkeypatch):
     """A pickle of JAX arrays or an orbax work_dir is refused with a pointer
-    to the converter (reading them needs JAX); --plot-dir is refused; the
-    default device needs CUDA."""
+    to the converter script (reading them needs JAX); --plot-dir is
+    refused; the default device needs CUDA."""
     path = tmp_path / "jax.pkl"
     with open(path, "wb") as f:
         pickle.dump({"params": {"w": jnp.ones(3)}}, f)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="scripts/jax_checkpoint_to_torch.py"):
         driver.load_checkpoint(tiny_model(), str(path), "v1.0.0")
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="scripts/jax_checkpoint_to_torch.py"):
         driver.load_checkpoint(tiny_model(), str(tmp_path), "v1.0.0")
     base = ["--config", CONFIG, "--synthetic"]
     with pytest.raises(SystemExit, match="plot-dir"):

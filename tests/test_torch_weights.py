@@ -84,6 +84,11 @@ def test_import_leaves_jax_out():
                  "racformer_tpu_torch.data.native",
                  "racformer_tpu_torch.train.hostdata",
                  "racformer_tpu_torch.train.hooks",
+                 "racformer_tpu_torch.train.checkpoint",
+                 "racformer_tpu_torch.train.__main__",
+                 "racformer_tpu_torch.data.prefetch",
+                 "racformer_tpu_torch.utils.logging",
+                 "racformer_tpu_torch.tools.convert_weights",
                  "racformer_tpu_torch.tools.export_results",
                  "racformer_tpu_torch.tools.gen_sweep_info"):
         assert name in modules
@@ -91,7 +96,7 @@ def test_import_leaves_jax_out():
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name.removesuffix('.__init__'))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'flax', 'racformer_tpu', 'PIL')]\n"
+            "       ('jax', 'flax', 'orbax', 'racformer_tpu', 'PIL')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -100,6 +105,7 @@ def test_import_leaves_jax_out():
 
 def test_port_sources_use_no_forbidden_code():
     banned = ("import jax", "from jax", "import flax", "from flax",
+              "import orbax", "from orbax",
               "scaled_dot_product_attention", "torch.compile",
               "cpp_extension", "import triton", "flash_attn", "xformers")
     # the JAX package itself, but not the port's own name
