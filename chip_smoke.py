@@ -8,6 +8,9 @@
                                             # and three 4-stream steps
     python3 chip_smoke.py --train-profile FILE  # the same for one train step
 
+On a machine of several cards phases 15 and 16 run at world 1 and then on
+every card, and print the scaling between the two.
+
 Phases, each printed as it runs; any failure exits non-zero:
   1. card and settings: the card's name and power limit, both TF32 flags
      (set off: the f32 head runs in full f32);
@@ -90,9 +93,44 @@ Phases, each printed as it runs; any failure exits non-zero:
      ida_aug, bev_aug) through the prefetching loader. Prints each step's
      ms, the loader's wait, each save's seconds and bytes, each eval's
      seconds and the peak memory, beside the card's name and power limit.
+ 15. (run last) the train driver under torchrun, one process per card, in
+     one torchrun call (`python -m torch.distributed.run --standalone
+     --nproc_per_node=<cards> chip_smoke.py --worker train ...`: each rank
+     calls the driver's `main` with --distributed --synthetic in process):
+     run A --max-steps 3 with its step 3 profiled, run B --resume to step
+     4; each rank's result gives the world, the global batch, the
+     synchronized ms of each step, the launches of each step (K2 / K3 / K4
+     at phase 8's counts on every rank), the BatchNorm all-reduces per
+     microbatch and the peak memory; rank 0 alone saves (verified) and
+     writes metrics.jsonl; every rank of run B restored the saved digest;
+     prints step 2's ms and samples/s and the share of step 3 in NCCL
+     kernels. Then, in the same processes, the small config of phase 10
+     in f32 (one row pair per rank) against one process at the same global
+     batch, both under deterministic algorithms: first-step
+     losses within 1e-5 relative; at one rank the parameters after the step
+     within 1e-4 of their max, at more ranks the gradients by direction
+     (cosine >= 0.999, global relative difference <= 1e-3: rounding in the
+     statistics flips the sign of near-zero gradients, and a first AdamW
+     step moves those by 2 lr);
+ 16. (run last) the eval driver under torchrun (`--worker eval`, under
+     deterministic algorithms), offline and --streaming --streams 4 on 8
+     synthetic samples in one torchrun call, against the same driver in
+     this process: the gathered predictions bitwise at one rank, within
+     phase 5's bounds at more; K1 launched on every rank; samples/s and
+     frames/s;
+ 17. (run last) the decoder's five remat policies (full, dots,
+     dots_no_batch, save_sampled, save_bev), 2 flagship train steps each on
+     the same batches and draws, on one model whose seeded weights and
+     optimizer state are restored before each policy: each step's ms, the
+     peak memory, launches per step (K2 72 / 72 / 72 / 36 / 48, K3 and K4
+     36), step 1's losses
+     and gradients (from the same seeded weights) against full's within
+     phase 9's bound. A policy that does not fit in the card's memory fails
+     the run.
 The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
-13 and 14, the K2-K4 entries theirs on phases 8 and 14, each counted from 0
-just before the phase's run.
+13, 14 and 16, the K2-K4 entries theirs on phases 8, 14, 15 and 17, each
+counted from 0 just before the phase's run (phases 15 and 16 count in their
+processes and report back, summed over the ranks).
 No module of JAX or of the JAX package may have been imported by the end.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -103,8 +141,10 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import re
 import runpy
+import signal
 import statistics
 import subprocess
 import sys
@@ -1272,6 +1312,8 @@ def phase_train_driver(cfg, card):
 
 
 TRAIN_STEPS = 5
+# the autograd node of `ops.bilinear.patch_sample_op`, as the profiler names it
+SAMPLE_BACKWARD = "GeneratedBackwardFor_racformer_tpu_torch_patch_sample_defaultBackward"
 # the kernels of one K3 call (csrc/patch_scatter.cu), as the profiler names them
 K3_KERNELS = ("count_chunks", "scan_chunks", "fill_chunks", "accumulate_tiles",
               "finish_rows")
@@ -1680,10 +1722,10 @@ def phase_train(cfg, dev, profile_path):
                   and k in e.key] for k in K3_KERNELS}
         k3_ms = sum(e.self_device_time_total for es in k3.values() for e in es)
         parts = ", ".join(f"{k} {sum(e.count for e in es)}" for k, es in k3.items())
-        backward = [e for e in events if e.key == "PatchSampleBackward"]
+        backward = [e for e in events if e.key == SAMPLE_BACKWARD]
         print(f"[8]   K3 in the step: {k3_ms / 1e3:.3f} ms device over its "
-              f"kernels' launches ({parts}); PatchSampleBackward (K3, K4 and "
-              f"their scratch) "
+              f"kernels' launches ({parts}); the sampler's backward (K3, K4 "
+              f"and their scratch) "
               f"{sum(e.device_time_total for e in backward) / 1e3:.3f} ms "
               f"device over {sum(e.count for e in backward)} calls")
         for label, kern in (("K2", "patch_gather_kernel"),
@@ -1826,6 +1868,13 @@ def phase_train_reference(model, batch, cfg, dev):
           "global relative gradient difference <= 0.05)")
 
 
+SMALL = dict(num_cams=2, num_frames=2, embed_dims=256, num_query=12,
+             num_clusters=2, image_hw=(64, 128), depth_bins=16,
+             bev_size=(32, 32), num_decoder_layers=2, max_gt=4,
+             trunk_dtype=torch.float32, decoder={"gather_dtype": torch.float32})
+SMALL_DEPTH = dict(d_lo=1.0, d_hi=65.0, num_bins=16, downsample=16)
+
+
 def phase_train_small(dev):
     """A small f32 config's train step on the card and on the CPU."""
     from racformer_tpu_torch.data import SyntheticDataset
@@ -1833,11 +1882,7 @@ def phase_train_small(dev):
     from racformer_tpu_torch.train import (Optimizer, make_draws,
                                            make_train_step, split_microbatches)
 
-    tiny = dict(num_cams=2, num_frames=2, embed_dims=256, num_query=12,
-                num_clusters=2, image_hw=(64, 128), depth_bins=16,
-                bev_size=(32, 32), num_decoder_layers=2, max_gt=4,
-                trunk_dtype=torch.float32, decoder={"gather_dtype": torch.float32})
-    depth = dict(d_lo=1.0, d_hi=65.0, num_bins=16, downsample=16)
+    tiny, depth = SMALL, SMALL_DEPTH
     cpu = random_init_(RaCFormer(**tiny), torch.Generator().manual_seed(SEED))
     gpu = RaCFormer(**tiny).to(dev)
     gpu.load_state_dict(cpu.state_dict())
@@ -1870,6 +1915,491 @@ def phase_train_small(dev):
     check(launched == [0, 24, 12, 12] and loss_rel <= 1e-4 and cos >= 0.999,
           "small train step on the card disagrees with the CPU (bound: "
           "losses 1e-4 relative, every gradient's cosine >= 0.999)")
+
+
+# --- phases 15-17: several processes, and the decoder's remat policies ----
+
+TORCHRUN_S = 600  # each torchrun call's limit (its processes are killed after)
+DDP_OVERRIDES = ["evaluation.interval=0", "log_interval=1"]
+
+
+def torchrun(n):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={n}"]
+
+
+def run_group(cmd, timeout=TORCHRUN_S):
+    """cmd from the checkout's root, in a process group of its own that is
+    killed whole when cmd ends or overruns `timeout`; returns (exit code,
+    its output)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"{' '.join(cmd[:8])} ... overran {timeout} s:\n"
+                           f"{out[-4000:]}")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return proc.returncode, out
+
+
+def check_run(tag, rc, out):
+    if rc != 0:
+        print(out[-6000:])
+    check(rc == 0, f"{tag}: exit code {rc}")
+
+
+def small_batch(rows):
+    """`rows` samples for SMALL: the port's SyntheticDataset with images of
+    coarse colour blocks at a gain of their own per image (train-mode
+    BatchNorm on images of noise turns rounding into noise, see
+    tests/test_torch_train_step.py)."""
+    from racformer_tpu_torch.data import SyntheticDataset
+
+    b = SyntheticDataset(num_samples=rows, num_cams=2, num_frames=2,
+                         hw=(64, 128), max_radar_points=64, max_gt=4,
+                         seed=SEED).batch(list(range(rows)))
+    rng = np.random.default_rng(SEED)
+    shape = b["imgs"].shape
+    blocks = rng.uniform(0, 255, shape[:3] + (2, 4, 3))
+    b["imgs"] = ((0.7 * blocks.repeat(32, axis=3).repeat(32, axis=4)
+                  + 0.3 * b["imgs"]) * rng.uniform(0.1, 1.0, shape[:3]
+                                                    + (1, 1, 1))
+                 ).astype(np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()
+            if not isinstance(v, list) and k not in ("token", "scene",
+                                                      "timestamp")}
+
+
+def small_ddp_step(dev, rows):
+    """One train step of SMALL (seeded weights, dropout off, the recipe's
+    optimizer) on this rank's rows of a seeded global batch of `rows`,
+    under DistributedDataParallel when a process group is up. Returns the
+    losses, the gradients after the clip and the parameters after the
+    step, on the host."""
+    from racformer_tpu_torch.model import RaCFormer, random_init_
+    from racformer_tpu_torch.train import Optimizer
+    from racformer_tpu_torch.train import step as step_mod
+    from racformer_tpu_torch.utils import distributed
+
+    world, rank = distributed.world(), distributed.rank()
+    model = random_init_(RaCFormer(**SMALL),
+                         torch.Generator().manual_seed(SEED)).to(dev).train()
+    ddp = None
+    if torch.distributed.is_initialized():
+        from torch.nn.parallel import DistributedDataParallel
+
+        ddp = DistributedDataParallel(model, device_ids=[dev],
+                                      broadcast_buffers=False)
+        ddp.register_comm_hook(None, step_mod.sum_gradients)
+    opt = Optimizer(model.named_parameters())
+    local = rows // world
+    batch = {k: v[rank * local:(rank + 1) * local].to(dev)
+             for k, v in small_batch(rows).items()}
+    gen = torch.Generator().manual_seed(SEED + 5)
+    draws = [step_mod.make_draws(model, m, gen, dropout=False, world=world,
+                                 rank=rank)
+             for m in step_mod.split_microbatches(batch, 2)]
+    metrics = step_mod.make_train_step(model, opt, SMALL_DEPTH, 2, ddp=ddp)(
+        batch, draws=draws)
+    return {"losses": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in
+                      model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in
+                       model.named_parameters()}}
+
+
+PROFILED_STEP = 3  # the call of run A's built step that phase 15 profiles
+
+
+def profile_step(fn, device):
+    """Run fn() under torch.profiler; returns (its result, {"step_ms",
+    "device_ms", "nccl_ms"}): the synchronized wall time, the device time
+    of all kernels and of the NCCL ones. Only the device's activity is
+    traced (the host's ~124k ops of a flagship step would take longer to
+    sum than the step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return out, {
+        "step_ms": ms,
+        "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+        "nccl_ms": sum(e.self_device_time_total for e in kernels
+                       if "nccl" in e.key.lower()) / 1e3}
+
+
+def train_run(argv, dev, profile):
+    """The train driver's main(argv) in this process, with the
+    PROFILED_STEP-th call of its built step profiled when `profile`.
+    Returns the driver's result without the model and the predictions,
+    with the BatchNorm all-reduces made, the peak memory, the seconds and
+    the profile."""
+    from racformer_tpu_torch.nn import layers
+    from racformer_tpu_torch.train import __main__ as drv
+
+    build, prof = drv.build, {}
+
+    def build_profiled(*a, **k):
+        model, opt, step, dataset, batch = build(*a, **k)
+        calls = []
+
+        def step_profiled(*sa, **sk):
+            calls.append(1)
+            if len(calls) != PROFILED_STEP:
+                return step(*sa, **sk)
+            out, prof["profile"] = profile_step(lambda: step(*sa, **sk), dev)
+            return out
+
+        return model, opt, step_profiled, dataset, batch
+
+    if profile:
+        drv.build = build_profiled
+    layers.SYNCS = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        out = drv.main(argv)
+    finally:
+        drv.build = build
+    out = {k: v for k, v in out.items() if k not in ("model", "eval_preds")}
+    out.update(prof, bn_syncs=layers.SYNCS, seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def worker(argv):
+    """`chip_smoke.py --worker KIND OUT JSON`, one process of a torchrun
+    call. It joins the process group itself (NCCL, one card per rank),
+    turns TF32 off as the parent does, and runs a driver once for each
+    argument list of JSON, in turn. KIND "train": the train driver
+    (`train_run`, the first run profiled), then `small_ddp_step` on this
+    rank's rows of a global batch of 2 per rank; KIND "eval": the eval
+    driver, counting each run's K1 launches. The eval runs and the small
+    step run under deterministic algorithms, as their references in the
+    parent do. Saves the results to OUT/rank_<r>.pt."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+    from racformer_tpu_torch.utils import distributed
+
+    kind, out_dir, runs = argv[0], Path(argv[1]), json.loads(argv[2])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dev = distributed.init("cuda")
+    try:
+        if kind == "train":
+            result = {"runs": [train_run(args, dev, profile=i == 0)
+                               for i, args in enumerate(runs)]}
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            result["small"] = small_ddp_step(dev, 2 * distributed.world())
+        else:
+            from racformer_tpu_torch.eval.__main__ import main as eval_main
+
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            result = []
+            for args in runs:
+                gk.LAUNCHES = 0
+                preds, _ = eval_main(args)
+                result.append({"preds": preds, "k1": gk.LAUNCHES})
+    finally:
+        distributed.shutdown()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(result, out_dir / f"rank_{rank}.pt")
+
+
+def run_workers(kind, n, out_dir, runs):
+    """`--worker KIND` on `n` cards in one torchrun call; returns each
+    rank's result, the call's output and its seconds (the processes' start
+    included)."""
+    t0 = time.perf_counter()
+    rc, out = run_group(torchrun(n) + [str(REPO / "chip_smoke.py"),
+                                       "--worker", kind, str(out_dir),
+                                       json.dumps(runs)])
+    secs = time.perf_counter() - t0
+    check_run(f"torchrun --worker {kind} on {n} cards", rc, out)
+    return ([torch.load(Path(out_dir) / f"rank_{r}.pt", weights_only=False)
+             for r in range(n)], out, secs)
+
+
+def phase_ddp_train(cfg, card, n):
+    """Phase 15: the train driver under torchrun, one process on each of
+    `n` cards, in one torchrun call: run A --max-steps 3 (step 3
+    profiled), run B --resume to 4, then SMALL's step on the same ranks
+    against one process. Returns the K1-K4 launches of the driver runs,
+    summed over the ranks, and the samples/s of run A's step 2."""
+    import tempfile
+
+    from racformer_tpu_torch.train.__main__ import accumulation_steps
+
+    layers = int(cfg["decoder"]["num_layers"])
+    accum = accumulation_steps(int(cfg.get("accumulate_steps", 1)),
+                               int(cfg.get("batch_size_per_chip", 2)))
+    want = [0, 2 * SITES * layers * accum, SITES * layers * accum,
+            SITES * layers * accum]
+    totals = np.zeros(4, np.int64)
+    runs = {"A": ["--max-steps", "3"], "B": ["--max-steps", "4", "--resume"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        wd = Path(tmp) / "wd"
+        ranks, _, secs = run_workers("train", n, tmp, [
+            ["--distributed", "--synthetic", "--config", str(CONFIG),
+             "--work-dir", str(wd), *extra, "--override", *DDP_OVERRIDES]
+            for extra in runs.values()])
+        steps = [r["step"] for r in map(json.loads, (wd / "metrics.jsonl")
+                                        .read_text().splitlines())]
+    print(f"[15] one torchrun call, --nproc_per_node={n}: runs A and B and "
+          f"SMALL's step in {secs:.2f} s, the processes' start included; "
+          f"{card}")
+    a, b = [[r["runs"][i] for r in ranks] for i in range(2)]
+    for (name, extra), sums in zip(runs.items(), (a, b)):
+        gb = sums[0]["global_batch"]
+        print(f"[15] run {name} ({' '.join(extra)}): world "
+              f"{sums[0]['world']}, global batch {gb} ({gb // n} per rank "
+              f"in {accum} microbatches), {sums[0]['seconds']:.2f} s")
+        for r, s in enumerate(sums):
+            peak = s["peak_bytes"]
+            print(f"[15]   rank {r}: synchronized ms per step "
+                  f"{[round(x['ms'], 1) for x in s['blocks']]}, launches "
+                  f"per step {[st['launches'] for st in s['steps']]}, peak "
+                  f"{peak} B ({peak / 2**30:.2f} GiB), BatchNorm all-reduces "
+                  f"per microbatch "
+                  f"{s['bn_syncs'] / (len(s['steps']) * accum):g}")
+            bad = [st for st in s["steps"] if st["launches"] != want]
+            check(s["steps"] and not bad,
+                  f"run {name} rank {r}: launches {bad}, want {want}")
+            totals += np.sum([st["launches"] for st in s["steps"]], axis=0)
+        check(sums[0]["saves"] and all(sv["verified"]
+                                       for sv in sums[0]["saves"]),
+              f"run {name}: rank 0's checkpoint not verified")
+        check(all(not s["saves"] for s in sums[1:]),
+              f"run {name}: a rank other than 0 saved")
+    digests = [s["restored_digest"] for s in b]
+    same = digests == [a[0]["digest"]] * n
+    print(f"[15] run B on {n} ranks restored digests "
+          f"{[d[:16] for d in digests]} against run A's saved "
+          f"{a[0]['digest'][:16]}: {'all equal' if same else 'DIFFER'}")
+    check(same, "a rank restored another state than the saved one")
+    print(f"[15] metrics.jsonl (rank 0 alone writes it): records at steps "
+          f"{steps}")
+    check(steps and len(steps) == len(set(steps)),
+          "metrics.jsonl: missing or duplicated records")
+    # step 2 of run A: its process's first step is 1, step 3 profiled
+    steady = max(s["blocks"][1]["ms"] for s in a)
+    gb = a[0]["global_batch"]
+    prof = a[0]["profile"]
+    print(f"[15] driver step 2 of run A (synchronized by its metrics "
+          f"fetch, the slowest rank's): {steady:.2f} ms, "
+          f"{gb * 1e3 / steady:.3f} samples/s at world {n}; {card}")
+    print(f"[15] profile of step 3 of run A (rank 0): "
+          f"{prof['step_ms']:.2f} ms, device busy {prof['device_ms']:.2f} "
+          f"ms, NCCL kernels {prof['nccl_ms']:.2f} ms: "
+          f"{prof['nccl_ms'] / prof['step_ms']:.4f} of the step, "
+          f"{prof['nccl_ms'] / max(prof['device_ms'], 1e-9):.4f} of the "
+          f"device time")
+    # SMALL on the same ranks against one process at the same global batch
+    rows = 2 * n
+    small = [r["small"] for r in ranks]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = small_ddp_step(torch.device("cuda", 0), rows)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_rel = max(abs(r["losses"][k] - v) / max(abs(v), 1e-12)
+                   for r in small for k, v in one["losses"].items())
+    p_err = max(float((r["params"][k] - v).abs().max())
+                / max(float(v.abs().max()), 1e-30)
+                for r in small for k, v in one["params"].items())
+    _, cos, rel = compare_steps(
+        f"[15] small f32 step, {n} ranks (global batch {rows}) against one "
+        f"process:", small[0]["losses"], one["losses"], small[0]["grads"],
+        one["grads"])
+    print(f"[15] first-step losses max relative difference {loss_rel:.3g} "
+          f"(bound 1e-5); parameters after the step max |d| / max|p| "
+          f"{p_err:.3g} (bound 1e-4 at world 1)")
+    check(loss_rel <= 1e-5, "DDP step losses disagree with one process")
+    if n == 1:
+        check(p_err <= 1e-4, "DDP step parameters disagree with one process")
+    else:
+        # rounding in BatchNorm's statistics moves gradients near zero, so a
+        # first AdamW step (lr * sign(g)) can flip there: held by direction
+        check(cos >= 0.999 and rel <= 1e-3,
+              "DDP step gradients disagree with one process (bound: every "
+              "gradient's cosine >= 0.999, global relative difference "
+              "<= 1e-3)")
+    return tuple(int(x) for x in totals), gb * 1e3 / steady
+
+
+def eval_rates(out):
+    """The rates of the eval driver's `eval: N samples, X samples/s` lines
+    (frames/s in the multi-stream protocol), in order."""
+    rates = re.findall(r"^eval: \d+ samples, ([\d.]+) samples/s", out, re.M)
+    check(rates, "the eval driver printed no eval line")
+    return [float(r) for r in rates]
+
+
+def phase_ddp_eval(card, n):
+    """Phase 16: the eval driver under torchrun on `n` cards (offline,
+    --streaming --streams 4, in one torchrun call) on the synthetic split
+    against the same driver in one process, both under deterministic
+    algorithms. Returns the K1 launches, summed over the ranks, and each
+    protocol's rate."""
+    import tempfile
+
+    from racformer_tpu_torch.eval.__main__ import main as eval_main
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    protocols = {"offline": ["--max-samples", "8"],
+                 "--streaming --streams 4": ["--max-samples", "8",
+                                             "--streaming", "--streams", "4"]}
+    argvs = [["--config", str(CONFIG), "--synthetic", *extra]
+             for extra in protocols.values()]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, out, secs = run_workers("eval", n, tmp, argvs)
+    got_rates = eval_rates(out)
+    check(len(got_rates) == len(argvs),
+          f"rank 0 printed {len(got_rates)} eval lines, want {len(argvs)}")
+    print(f"[16] one torchrun call, --nproc_per_node={n}: both protocols on "
+          f"8 synthetic samples in {secs:.2f} s, the processes' start "
+          f"included; {card}")
+    k1, rates = 0, {}
+    for i, (name, args) in enumerate(zip(protocols, argvs)):
+        runs = [r[i] for r in ranks]
+        k1 += sum(r["k1"] for r in runs)
+        unit = "frames/s" if "streams" in name else "samples/s"
+        rates[name] = got_rates[i]
+        print(f"[16] eval driver {name} on {n} ranks: {rates[name]:.3f} "
+              f"{unit} (deterministic algorithms); K1 launches per rank "
+              f"{[r['k1'] for r in runs]}")
+        check(all(r["k1"] > 0 for r in runs),
+              f"{name}: a rank launched no K1")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            gk.LAUNCHES = 0
+            (want, _), text = run_driver(eval_main, args)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"[16] the same in one process: {eval_rates(text)[-1]:.3f} "
+              f"{unit}")
+        got = runs[0]["preds"]
+        exact = len(got) == len(want) and all(
+            np.array_equal(p[k], w[k]) for p, w in zip(got, want) for k in w)
+        close = len(got) == len(want) and all(
+            decoded_match(p, w)[0] for p, w in zip(got, want))
+        print(f"[16] gathered predictions against one process's: "
+              f"{'bitwise equal' if exact else 'not bitwise'}; within phase "
+              f"5's bounds: {close}")
+        check(exact if n == 1 else close,
+              f"{name}: {n}-rank predictions disagree with one process "
+              f"(bound: bitwise at world 1, phase 5's at more ranks)")
+    return k1, rates
+
+
+def phase_ddp_worlds(cfg, card):
+    """Phases 15 and 16 at world 1 and, on a machine of several cards, on
+    every card: the scaling's two sides in one call. Returns the worlds
+    and each world's phase 15 and phase 16 results."""
+    worlds = sorted({1, torch.cuda.device_count()})
+    train = {n: phase_ddp_train(cfg, card, n) for n in worlds}
+    evals = {n: phase_ddp_eval(card, n) for n in worlds}
+    for n in worlds[1:]:
+        print(f"[-] {card}: world {n}: train driver {train[n][1]:.3f} "
+              f"samples/s ({train[n][1] / train[1][1]:.2f}x world 1), "
+              + ", ".join(f"eval {k} {v:.3f} ({v / evals[1][1][k]:.2f}x)"
+                          for k, v in evals[n][1].items()))
+    return worlds, train, evals
+
+
+# the sampler sites whose K2 gathers each policy runs again in the backward
+REMAT_RECOMPUTED = {"full": 3, "dots": 3, "dots_no_batch": 3,
+                    "save_sampled": 0, "save_bev": 1}
+
+
+def phase_remat(cfg, dev, card):
+    """Phase 17: each decoder remat policy for 2 flagship train steps with
+    the same batches and draws, on one model built once: before each
+    policy its decoder's `remat_policy` is set and the seeded weights and
+    the optimizer's first state are restored. Returns the K2-K4 launches
+    of the phase."""
+    import copy
+
+    from racformer_tpu_torch.nn.decoder import RaCFormerDecoder
+    from racformer_tpu_torch.train import make_draws, split_microbatches
+    from racformer_tpu_torch.train.__main__ import build, to_device
+
+    accum = int(cfg.get("accumulate_steps", 1))
+    layers = int(cfg["decoder"]["num_layers"])
+    print("[17] building the flagship model once for the five policies")
+    model, optimizer, step, dataset, batch = build(cfg, dev, SEED, 1000)
+    decoder = next(m for m in model.modules()
+                   if isinstance(m, RaCFormerDecoder))
+    # on the host, so that no policy's peak counts a copy of the weights
+    weights = {k: v.detach().cpu().clone()
+               for k, v in model.state_dict().items()}
+    opt_state = copy.deepcopy(optimizer.state_dict())
+    batches = [to_device(dataset.batch(list(range(i * batch,
+                                                 (i + 1) * batch))), dev)
+               for i in range(2)]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    draws = [[make_draws(model, m, gen)
+              for m in split_microbatches(b, accum)] for b in batches]
+    results, totals = {}, np.zeros(4, np.int64)
+    for policy, again in REMAT_RECOMPUTED.items():
+        k2 = (SITES + again) * layers * accum
+        decoder.remat_policy = policy
+        model.load_state_dict(weights)
+        optimizer.load_state_dict(copy.deepcopy(opt_state))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ms = []
+        for b, d in zip(batches, draws):
+            t0 = time.perf_counter()
+            metrics = step(b, draws=d)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not results.get(policy):  # step 1, from the seeded weights
+                results[policy] = (
+                    {k: float(v) for k, v in metrics.items()},
+                    {n: g.cpu() for n, g in grads_of(model, metrics).items()})
+        launches = launch_counts()
+        totals += launches
+        peak = torch.cuda.max_memory_allocated()
+        per_step = [x // 2 for x in launches]
+        print(f"[17] policy {policy}: step ms {ms[0]:.2f} (first), "
+              f"{ms[1]:.2f} (second); peak {peak} B ({peak / 2**30:.2f} GiB); "
+              f"launches per step K1-K4 {per_step} (K2 expected {k2}); {card}")
+        per_site = SITES * layers * accum
+        check(per_step == [0, k2, per_site, per_site]
+              and all(x % 2 == 0 for x in launches),
+              f"policy {policy}: launches {launches} over 2 steps")
+    del model, step, metrics, batches
+    torch.cuda.empty_cache()
+    full_m, full_g = results["full"]
+    for policy, (m, g) in results.items():
+        if policy == "full":
+            continue
+        # step 1 from equal weights: after it, AdamW's lr * sign(g) turns
+        # the rounding of near-zero gradients into differences of 2 lr
+        loss_rel, cos, rel = compare_steps(
+            f"[17] policy {policy} against full, step 1:", m, full_m, g, full_g)
+        check(loss_rel <= 1e-3 and cos >= 0.99 and rel <= 0.05,
+              f"policy {policy}: gradients disagree with full's (phase 9's "
+              f"bound)")
+    return tuple(int(x) for x in totals)
 
 
 def flagship_model(dev):
@@ -1924,6 +2454,11 @@ def main(argv):
     phase_train_small(dev)
     drv_launches = phase_driver()
     train_drv, drv_steady, drv_peak = phase_train_driver(cfg, card)
+    worlds, train, evals = phase_ddp_worlds(cfg, card)
+    ddp_launches = tuple(int(x) for x in np.sum([train[n][0] for n in worlds],
+                                                axis=0))
+    ddp_k1 = sum(evals[n][0] for n in worlds)
+    remat_launches = phase_remat(cfg, dev, card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
@@ -1936,13 +2471,16 @@ def main(argv):
           f"{tpeak / 2**30:.2f} GiB; the train driver's step {drv_steady:.2f} "
           f"ms, peak {drv_peak / 2**30:.2f} GiB")
     k1_launches = launches + ms_launches + off_launches + drv_launches + \
-        train_drv[0]
+        train_drv[0] + ddp_k1
     print(f"[-] K1 launches on the eval paths: {k1_launches} = streaming "
           f"{launches} + {MS_STREAMS} streams {ms_launches} + offline "
           f"{off_launches} + eval driver {drv_launches} + train driver's evals "
-          f"and the eval driver on its work dir {train_drv[0]}")
+          f"and the eval driver on its work dir {train_drv[0]} + the eval "
+          f"driver under torchrun (phase 16, every rank) {ddp_k1}")
     print(f"[-] K2, K3, K4 launches: train steps (phase 8) {tlaunches[1:]} + "
-          f"train driver (phase 14) {train_drv[1:]}")
+          f"train driver (phase 14) {train_drv[1:]} + train driver under "
+          f"torchrun (phase 15, every rank) {ddp_launches[1:]} + remat "
+          f"policies (phase 17) {remat_launches[1:]}")
     kernels = [{
         "name": "gather_fold", "route": "cuda",
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
@@ -1954,7 +2492,8 @@ def main(argv):
             ("patch_gather", "racformer_tpu/ops/gather_kernel.py:53"),
             ("patch_scatter", "racformer_tpu/ops/scatter_kernel.py:47"),
             ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
-            tlaunches[1:], train_drv[1:]):
+            tlaunches[1:], [sum(x) for x in zip(
+                train_drv[1:], ddp_launches[1:], remat_launches[1:])]):
         st = patch[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",
@@ -1970,6 +2509,9 @@ def main(argv):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2:])
+        sys.exit(0)
     try:
         main(sys.argv[1:])
     except SmokeFailure as e:

@@ -85,7 +85,9 @@ class PrefetchLoader:
 
     def get(self, expected_step: int):
         step, batch = self._q.get()
-        if self._err is not None:
+        # only the sentinel carries the worker's error: a batch queued
+        # before the failure is still returned at its own step
+        if step is None:
             raise self._err
         if step != expected_step:
             raise RuntimeError(f"prefetch out of sync: got {step}, want {expected_step}")

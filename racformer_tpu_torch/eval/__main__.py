@@ -13,6 +13,17 @@ throughput protocol (`--streaming --streams N`: N scene streams in
 lockstep). The dataset is VoD, synthetic or nuScenes, chosen as `val.py`
 chooses. Prints `eval: N samples, X samples/s` and the metrics as JSON.
 
+Under `torchrun` (`torchrun --nproc_per_node=N -m racformer_tpu_torch.eval
+...`; NCCL on CUDA, one card per process, gloo with `--device cpu`) the
+offline protocol shards every global batch of N * `--batch-size` samples
+over the ranks and the multi-stream protocol its streams (when N divides
+their count, else rank 0 runs them all); the single-stream latency protocol
+runs on rank 0 alone, without a process group. Where the ranks share the
+work every rank gathers all predictions; where rank 0 runs alone the others
+return at once with none, so that no rank waits in a collective (and its
+timeout) for rank 0's whole run. Rank 0 prints the rate and the metrics and
+writes `--dump-eval`.
+
 Checkpoints: a torch `.pth` / `.pt` state dict (the reference's parameter
 names, which are the port's; its `version` field sets the legacy box
 convention), a pickled `{'params': ..., 'batch_stats': ...}` file with
@@ -33,6 +44,7 @@ import pickle
 import torch
 
 from ..tools.convert_weights import CONVERTER, NumpyOnlyUnpickler
+from ..utils import distributed
 
 
 def parse_args(argv=None):
@@ -127,14 +139,34 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("the eval driver needs a CUDA device (pass --device "
                          "cpu to run the plain versions on the CPU)")
-    device = torch.device(args.device)
+    launched = all(k in os.environ for k in distributed.ENV)
+    if launched and args.streaming and args.streams <= 1:
+        # the latency protocol runs on one card: rank 0 alone, joining no
+        # process group, and the other ranks leave at once
+        rank = (distributed.rank() if torch.distributed.is_initialized()
+                else int(os.environ["RANK"]))
+        if rank != 0:
+            print(f"rank {rank}: the single-stream protocol runs on rank 0")
+            return [], None
+        launched = False
+    owned = launched and not torch.distributed.is_initialized()
+    device = (distributed.init(args.device) if launched
+              else torch.device(args.device))
+    try:
+        return _evaluate(args, device)
+    finally:
+        if owned:
+            distributed.shutdown()
 
+
+def _evaluate(args, device):
     from ..config import Config
     from ..model import RaCFormer, config_kwargs, random_init_
     from .offline import OfflineEvaluator, detection_metrics
     from .streaming import (StreamingEvaluator, run_multistream,
                             run_single_stream)
 
+    rank = distributed.rank()
     cfg = Config.fromfile(args.config).merge_override(args.override)
     with torch.device(device):
         model = RaCFormer(**config_kwargs(cfg))
@@ -154,14 +186,15 @@ def main(argv=None):
     if args.streaming and args.streams > 1:
         ev = StreamingEvaluator(model, eval_cfg=ecfg)
         preds, gts, fps = run_multistream(ev, dataset, args.streams)
-    elif args.streaming:
+    elif args.streaming:  # rank 0 alone (see `main`)
         preds, gts, fps = run_single_stream(
             StreamingEvaluator(model, eval_cfg=ecfg), dataset)
     else:
         ev = OfflineEvaluator(model, eval_cfg=ecfg,
                               batch_size=max(1, int(args.batch_size)))
         preds, gts, fps = ev.run(dataset)
-    print(f"eval: {num} samples, {fps:.2f} samples/s")
+    if rank == 0:
+        print(f"eval: {num} samples, {fps:.2f} samples/s")
 
     metrics = None
     if gts:
@@ -169,11 +202,13 @@ def main(argv=None):
             preds, gts, is_vod=is_vod,
             class_names=list(cfg.get("class_names", [])) or None,
             front_only=bool(cfg.get("eval_front_only", False)))
-        if args.dump_eval:
-            with open(args.dump_eval, "wb") as f:
-                pickle.dump((preds, gts), f)
-        print(json.dumps({k: round(float(v), 4) for k, v in metrics.items()
-                          if isinstance(v, (int, float))}, indent=2))
+        if rank == 0:
+            if args.dump_eval:
+                with open(args.dump_eval, "wb") as f:
+                    pickle.dump((preds, gts), f)
+            print(json.dumps({k: round(float(v), 4)
+                              for k, v in metrics.items()
+                              if isinstance(v, (int, float))}, indent=2))
     return preds, metrics
 
 

@@ -1,9 +1,12 @@
-"""Batched offline evaluation on one device (port of
-`racformer_tpu/eval/offline.py`, without its mesh and multi-host parts):
+"""Batched offline evaluation (port of `racformer_tpu/eval/offline.py`):
 the whole T-frame window of every sample through the model's forward,
-batches of `batch_size` samples, the tail padded with the last sample and
-dropped after the box decode. Also the ground-truth extraction and the
-metric dispatch shared by the eval driver's three protocols.
+batches of `batch_size` samples per rank, the tail padded with the last
+sample and dropped after the box decode. With several ranks
+(`utils.distributed`) each loads its rows of every global batch, as the JAX
+evaluator's processes do over the data mesh, and the predictions are
+gathered so that every rank returns all of them. Also the ground-truth
+extraction and the metric dispatch shared by the eval driver's three
+protocols.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from ..model import preprocess_images
+from ..utils import distributed
 from .decode import decode_boxes, decode_config
 
 ARG_KEYS = ("imgs", "radar_points", "radar_mask", "radar_depth", "radar_rcs",
@@ -82,33 +86,50 @@ class OfflineEvaluator:
             ) -> Tuple[List[Dict], List[Dict], float]:
         """Returns (preds, gts, samples_per_sec); the first batch is left
         out of the timing (it pays for cuDNN's algorithm choice and the
-        kernels' first loads)."""
+        kernels' first loads).
+
+        With W ranks a global batch is W * batch_size samples (the tail
+        padded with the last sample), rank r loads rows [r * batch_size,
+        (r + 1) * batch_size) of it, and every rank returns the (preds,
+        gts) of every sample in dataset order, gathered after each batch:
+        the metrics, and any decision taken on them, agree on every
+        rank. Each batch is timed from its forward through the gather of
+        its rows, and the rate is the valid samples over the slowest
+        rank's time."""
         num = len(dataset)
         if max_samples:
             num = min(num, int(max_samples))
         preds: List[Dict] = []
         gts: List[Dict] = []
         t_total, n = 0.0, 0
-        B = self.batch
+        world, rank = distributed.world(), distributed.rank()
+        local = self.batch
+        B = local * world
         for start in range(0, num, B):
             valid = min(start + B, num) - start
             idxs = list(range(start, start + valid))
             idxs += [idxs[-1]] * (B - valid)
-            sb = dataset.batch(idxs)
+            sb = dataset.batch(idxs[rank * local:(rank + 1) * local])
             b = {k: torch.from_numpy(np.ascontiguousarray(sb[k])).to(self.device)
                  for k in ARG_KEYS}
             t0 = time.perf_counter()
             out = self.predict(b)
             synchronize(self.device)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            rows = [({k: v[j] for k, v in out.items()}, gather_gt(sb, j))
+                    for j in range(local)]
+            if world > 1:  # every rank's rows, in rank order
+                rows = [r for part in distributed.all_gather_object(rows)
+                        for r in part]
             if start > 0:
                 t_total += time.perf_counter() - t0
                 n += valid
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            for j in range(valid):
-                preds.append({k: v[j] for k, v in out.items()})
-                g = gather_gt(sb, j)
+            for p, g in rows[:valid]:
+                preds.append(p)
                 if g is not None:
                     gts.append(g)
+        if world > 1:
+            t_total = max(distributed.all_gather_object(t_total))
         return preds, gts, (n / t_total if t_total > 0 else 0.0)
 
 

@@ -25,6 +25,7 @@ import torch
 
 from ..model.racformer import RaCFormer, preprocess_images
 from .decode import decode_boxes, decode_config
+from ..utils import distributed
 from .offline import gather_gt_sample, synchronize
 
 FIELDS = ("imgs", "radar_points", "radar_mask", "radar_depth", "radar_rcs",
@@ -269,8 +270,17 @@ def run_multistream(ev: StreamingEvaluator, dataset, streams: int):
     last frame (output discarded) until the longest stream drains, so the
     batch keeps its shape.
 
+    With W ranks (`utils.distributed`) and a stream count that W divides,
+    rank r runs streams [r * N / W, (r + 1) * N / W) of the one stream plan,
+    as the JAX evaluator shards the stream axis over its data mesh, and
+    every rank returns all predictions. With another count rank 0 runs
+    every stream (`val.py`'s warning is printed) and the other ranks return
+    at once with no predictions: none of them waits in a collective for
+    rank 0's whole run.
+
     Returns (preds ordered by dataset index, gts likewise, fps) where fps
-    counts VALID frames only, after the first step.
+    counts VALID frames only, after the first step (with several ranks:
+    the frames of all of them over the slowest rank's time).
     """
     n = len(dataset)
     plan = _assign_streams(_scene_groups(dataset), streams)
@@ -283,6 +293,40 @@ def run_multistream(ev: StreamingEvaluator, dataset, streams: int):
         print(f"streaming: only {len(plan)} scene groups — running "
               f"{len(plan)} streams instead of the requested {streams}")
         streams = len(plan)
+    world, rank = distributed.world(), distributed.rank()
+    shard = world > 1 and streams % world == 0
+    if shard:
+        k = streams // world
+        plan = plan[rank * k:(rank + 1) * k]
+    elif world > 1:
+        if rank != 0:
+            return [], [], 0.0
+        print(f"warning: --streams {streams} not a multiple of the world "
+              f"size {world}; running all streams on one rank (pass a "
+              f"multiple of {world} to shard over the ranks)")
+    preds_by_idx, gts_by_idx, n_timed, t_total = _lockstep(ev, dataset, plan)
+    if shard:
+        parts = distributed.all_gather_object(
+            (preds_by_idx, gts_by_idx, n_timed, t_total))
+        preds_by_idx = {i: p for part in parts for i, p in part[0].items()}
+        gts_by_idx = {i: g for part in parts for i, g in part[1].items()}
+        n_timed = sum(part[2] for part in parts)
+        t_total = max(part[3] for part in parts)
+    assert len(preds_by_idx) == n, (len(preds_by_idx), n)
+    preds = [preds_by_idx[i] for i in range(n)]
+    gts = [gts_by_idx[i] for i in range(n)] if gts_by_idx else []
+    fps = n_timed / t_total if t_total > 0 else 0.0
+    return preds, gts, fps
+
+
+def _lockstep(ev: StreamingEvaluator, dataset, plan):
+    """The streams of `plan` (each a list of scene groups) in lockstep.
+    Returns ({index: pred}, {index: gt}, valid frames timed, seconds)."""
+    streams = len(plan)
+    preds_by_idx: Dict[int, Dict] = {}
+    gts_by_idx: Dict[int, Dict] = {}
+    if not plan:
+        return preds_by_idx, gts_by_idx, 0, 0.0
     # flat per-stream (index, is_scene_start) tapes
     tapes = [[(i, j == 0) for g in sgroups for j, i in enumerate(g)]
              for sgroups in plan]
@@ -291,8 +335,6 @@ def run_multistream(ev: StreamingEvaluator, dataset, streams: int):
     use_cols: Optional[bool] = None
     scene_t0 = [0.0] * streams
     last_frame: List[Optional[Dict]] = [None] * streams
-    preds_by_idx: Dict[int, Dict] = {}
-    gts_by_idx: Dict[int, Dict] = {}
     t_total, n_timed = 0.0, 0
 
     for t in range(max_len):
@@ -330,8 +372,4 @@ def run_multistream(ev: StreamingEvaluator, dataset, streams: int):
             if idx is not None:
                 preds_by_idx[idx] = {k: v[b] for k, v in out.items()}
 
-    assert len(preds_by_idx) == n, (len(preds_by_idx), n)
-    preds = [preds_by_idx[i] for i in range(n)]
-    gts = [gts_by_idx[i] for i in range(n)] if gts_by_idx else []
-    fps = n_timed / t_total if t_total > 0 else 0.0
-    return preds, gts, fps
+    return preds_by_idx, gts_by_idx, n_timed, t_total

@@ -24,7 +24,7 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 
-from ..nn.decoder import CLS_PRIOR_BIAS
+from ..nn.decoder import CLS_PRIOR_BIAS, resolve_remat_policy
 from ..nn.fpn import FPN, CustomFPN
 from ..nn.head import RaCFormerHead
 from ..nn.layers import BatchNorm
@@ -265,8 +265,7 @@ def config_kwargs(cfg) -> dict:
     A field of the `model` block that the port cannot honour (the JAX
     model's `trunk_dtype`, `head_dtype`, `fused_gather`,
     `num_decoder_layers`, or an unknown name) raises a ValueError, as does
-    a decoder `remat_policy` other than "full" (the port checkpoints each
-    decoder iteration whole)."""
+    an unknown decoder `remat_policy` (`nn.decoder.REMAT_POLICIES`)."""
     kwargs = dict(cfg["model"])
     unknown = sorted(set(kwargs) - set(CONFIG_FIELDS))
     if unknown:
@@ -275,12 +274,7 @@ def config_kwargs(cfg) -> dict:
     if "num_classes" not in kwargs and cfg.get("class_names"):
         kwargs["num_classes"] = len(cfg["class_names"])
     kwargs["decoder"] = dict(kwargs.get("decoder") or cfg.get("decoder") or {})
-    policy = kwargs["decoder"].pop("remat_policy", None) or "full"
-    if policy != "full":
-        raise ValueError(f"decoder.remat_policy={policy!r} is not ported: the "
-                         f"port recomputes each decoder iteration whole "
-                         f"(\"full\"); other policies are queued in "
-                         f"ROADMAP.md §1")
+    resolve_remat_policy(kwargs["decoder"].get("remat_policy"))
     return kwargs
 
 

@@ -35,7 +35,7 @@ def radial_offsets(query_feat, ray_offset_dense, d_region, depth_num):
 class BEVCrossFrameAttention(nn.Module):
     """Deformable attention over the T-frame BEV queue, batch-major
     (b * T + t) slab order throughout. Eval mode sums `fold` points per
-    kernel output (K1); train mode samples each point (`PatchSample`)."""
+    kernel output (K1); train mode samples each point (`patch_sample_op`)."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 4,
                  num_frames: int = 8, fold: int = 4, spatial_shape=(128, 128)):

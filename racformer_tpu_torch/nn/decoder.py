@@ -10,21 +10,30 @@ same in every iteration (radar ConvGRU temporal encoding, BEV positional
 encodings and value projections) runs once, before the loop.
 
 In train mode each iteration runs under `torch.utils.checkpoint`: its
-activations are recomputed in the backward, as the JAX package's full
-`nn.remat` of the scanned layer does. The iteration's dropout masks come
-from a seed drawn before the checkpointed call, so the recompute draws the
-same masks (`torch.utils.checkpoint` restores only the global RNG state).
+activations are recomputed in the backward, as the JAX package's
+`nn.remat` of the scanned layer does, under one of its remat policies
+(`REMAT_POLICIES`, chosen by `remat_policy`: the config's
+`decoder.remat_policy`, else `RACFORMER_REMAT_POLICY`, else "full"): a
+policy other than "full" keeps some outputs of the forward through a
+selective-checkpoint context instead of recomputing them. The iteration's
+dropout masks come from a seed drawn before the checkpointed call, so the
+recompute draws the same masks (`torch.utils.checkpoint` restores only the
+global RNG state).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+import os
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.bbox_codec import inverse_sigmoid, theta_d_to_xy
+from ..ops import bilinear
 from .adaptive_mixing import AdaptiveMixing
 from .bev_sampling import BEVSampling
 from .conv_gru import RadarBEVTemporalEncoder
@@ -34,6 +43,52 @@ from .layers import (Dropout, DropoutRNG, Linear, current_dropout_rng,
 from .sasa import ScaleAdaptiveSelfAttention
 
 CLS_PRIOR_BIAS = -4.59511985013459  # bias_init_with_prob(0.01)
+
+_aten = torch.ops.aten
+# the matrix products as a dispatch mode sees them (`F.linear` reaches it
+# as mm / addmm)
+_DOTS = frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm})
+# The JAX package's policies (`racformer_tpu/nn/decoder.py`), as what the
+# forward keeps: (the matrix products whose outputs are kept, the sampler
+# sites whose `patch_sample_op` outputs are kept). "dots" is
+# `checkpoint_dots`, "dots_no_batch" `dots_with_no_batch_dims_saveable`
+# (no batched products), "save_sampled" and "save_bev" keep what JAX tags
+# "sampled_img" and "sampled_bev": the samples of the image site and the
+# two BEV sites, so their K2 gathers are not run again in the backward.
+REMAT_POLICIES = {
+    "full": (frozenset(), ()),
+    "dots": (_DOTS, ()),
+    "dots_no_batch": (_DOTS - {_aten.bmm, _aten.baddbmm}, ()),
+    "save_sampled": (frozenset(), ("img", "bev")),
+    "save_bev": (frozenset(), ("bev",)),
+}
+
+
+def resolve_remat_policy(name: Optional[str] = None) -> str:
+    """The policy's name: `name`, else `RACFORMER_REMAT_POLICY`, else
+    "full"; an unknown one raises as the JAX package does."""
+    name = name or os.environ.get("RACFORMER_REMAT_POLICY", "full")
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown decoder remat_policy {name!r}; "
+                         f"expected one of {sorted(REMAT_POLICIES)}")
+    return name
+
+
+def _keeps(dots, sites, ctx, func, *args, **kwargs):
+    if func.overloadpacket in dots or (func._schema.name == bilinear.OP_NAME
+                                       and args[5] in sites):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(name: str):
+    """`torch.utils.checkpoint`'s `context_fn` for policy `name` (None for
+    "full", which keeps nothing)."""
+    dots, sites = REMAT_POLICIES[name]
+    if not dots and not sites:
+        return None
+    return functools.partial(create_selective_checkpoint_contexts,
+                             functools.partial(_keeps, dots, sites))
 
 
 class FFN(nn.Module):
@@ -130,12 +185,14 @@ class RaCFormerDecoderLayer(nn.Module):
 class RaCFormerDecoder(nn.Module):
     def __init__(self, num_layers: int = 6,
                  d_region_list: Sequence[float] = (0.08, 0.07, 0.06, 0.05, 0.04, 0.03),
-                 gather_dtype: torch.dtype = torch.bfloat16, **layer_cfg):
+                 gather_dtype: torch.dtype = torch.bfloat16,
+                 remat_policy: Optional[str] = None, **layer_cfg):
         super().__init__()
         self.num_layers = num_layers
         self.d_region_list = tuple(d_region_list)
         self.gather_dtype = gather_dtype
         self.remat = True  # checkpoint each iteration in train mode
+        self.remat_policy = resolve_remat_policy(remat_policy)
         self.decoder_layer = RaCFormerDecoderLayer(**layer_cfg)
 
     def _iteration(self, seed, *args):
@@ -164,8 +221,10 @@ class RaCFormerDecoder(nn.Module):
                     query_feat, feat_cat, lss_value, radar_value, lidar2img,
                     time_diff, self.d_region_list[i], attn_mask)
             if remat:
+                context = remat_context(self.remat_policy)
+                kw = {} if context is None else {"context_fn": context}
                 cls_score, bbox_pred, query_feat = checkpoint(
-                    self._iteration, *args, use_reentrant=False)
+                    self._iteration, *args, use_reentrant=False, **kw)
             else:
                 cls_score, bbox_pred, query_feat = self._iteration(*args)
             cls_all.append(cls_score)

@@ -25,7 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import distributed
+
 LN_EPS = 1e-6  # flax `nn.LayerNorm` default, which the JAX package uses
+SYNCS = 0  # all-reduces made by train-mode `BatchNorm` across ranks
 
 
 class Conv2d(nn.Conv2d):
@@ -76,7 +79,9 @@ class BatchNorm(nn.Module):
     flax's default) or as E[(x - E[x])^2]; the running statistics move by
     `momentum` towards the batch's, both the BIASED variance (torch's
     `F.batch_norm` would store the unbiased one). `momentum` follows torch's
-    convention: flax `momentum=0.9` is 0.1 here."""
+    convention: flax `momentum=0.9` is 0.1 here. With several ranks
+    (`utils.distributed`) the statistics cover the global batch, every
+    rank's rows, so the running statistics stay equal on every rank."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, fast_variance: bool = True):
@@ -97,11 +102,14 @@ class BatchNorm(nn.Module):
             return x * s.to(x.dtype) + t.to(x.dtype)
         dims = tuple(range(x.dim() - 1))
         xf = x.float()
-        mean = xf.mean(dims)
-        if self.fast_variance:
-            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+        if distributed.world() > 1:
+            mean, var = self._global_statistics(xf, dims)
         else:
-            var = ((xf - mean) ** 2).mean(dims)
+            mean = xf.mean(dims)
+            if self.fast_variance:
+                var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+            else:
+                var = ((xf - mean) ** 2).mean(dims)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -109,6 +117,27 @@ class BatchNorm(nn.Module):
             self.num_batches_tracked += 1
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
+
+
+    def _global_statistics(self, xf, dims):
+        """Mean and biased variance over every rank's rows, as flax's
+        BatchNorm computes them over a batch axis sharded across devices:
+        the per-channel sums (of x and x^2, or of (x - mean)^2 once the
+        global mean is known) and the count, all-reduced with a backward."""
+        global SYNCS
+        C = xf.shape[-1]
+        count = xf.new_full((1,), xf.numel() // C)
+        if self.fast_variance:
+            s = distributed.all_reduce_sum(
+                torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+            SYNCS += 1
+            mean = s[:C] / s[-1]
+            return mean, (s[C:2 * C] / s[-1] - mean * mean).clamp(min=0.0)
+        s = distributed.all_reduce_sum(torch.cat([xf.sum(dims), count]))
+        mean = s[:C] / s[-1]
+        var = distributed.all_reduce_sum(((xf - mean) ** 2).sum(dims)) / s[-1]
+        SYNCS += 2
+        return mean, var
 
 
 class FrozenBatchNorm(BatchNorm):

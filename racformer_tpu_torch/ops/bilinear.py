@@ -1,7 +1,7 @@
 """Sampler-ready feature maps and the training path's bilinear sample
 (port of `racformer_tpu/ops/bilinear.py`: `PAD`, `pad_for_sampling`,
 `fuse_rows`, the coordinate handling of `bilinear_sample_views_nhwc` and the
-custom VJP `_patch_sample_pallas`).
+custom VJP `_patch_sample_pallas`, here the operator `patch_sample_op`).
 
 A sampler-ready map is zero-bordered by `PAD` on both spatial axes and
 y-fused: row h of the fused map holds rows h and h+1 of the bordered map in
@@ -56,38 +56,54 @@ def corner_coords(x_pix, y_pix, H, W, dtype):
     return x0p, y0p, wx, wy
 
 
-class PatchSample(torch.autograd.Function):
+SITES = ("img", "bev")  # a sample's site, for the decoder's remat policies
+OP_NAME = "racformer_tpu_torch::patch_sample"
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=())
+def patch_sample_op(fused: torch.Tensor, row: torch.Tensor, x0p: torch.Tensor,
+                    wx: torch.Tensor, wy: torch.Tensor,
+                    site: str) -> torch.Tensor:
     """Bilinear sample of a sampler-ready map with hand-written kernels both
     ways, the contract of the JAX custom VJP `_patch_sample_pallas`:
     forward K2 (`gather_kernel.patch_gather`), backward K3
     (`scatter_kernel.patch_scatter`) for the map and K4
     (`gather_kernel.patch_corner_grads`) for wx and wy. The integer inputs
-    get no gradient."""
-
-    @staticmethod
-    def forward(ctx, fused, row, x0p, wx, wy):
-        ctx.save_for_backward(fused, row, x0p, wx, wy)
-        return gather_kernel.patch_gather(fused, row, x0p, wx, wy)
-
-    @staticmethod
-    def backward(ctx, g):
-        fused, row, x0p, wx, wy = ctx.saved_tensors
-        g = g.to(fused.dtype).contiguous()
-        d_fused = d_wx = d_wy = None
-        if ctx.needs_input_grad[0]:
-            d_fused = scatter_kernel.patch_scatter(
-                g, row, x0p, wx, wy, fused.shape)  # in the map dtype
-        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
-            d_wx, d_wy = gather_kernel.patch_corner_grads(
-                fused, g, row, x0p, wx, wy)
-        return d_fused, None, None, d_wx, d_wy
+    get no gradient. An operator of its own (not an autograd.Function), so
+    that a selective-checkpoint policy sees it and can keep its output:
+    `site` ("img" or "bev") names the sampler it serves
+    (`nn.decoder.REMAT_POLICIES`)."""
+    return gather_kernel.patch_gather(fused, row, x0p, wx, wy)
 
 
-def patch_sample(fused, row, x0p, wx, wy):
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:5])
+
+
+def _patch_sample_backward(ctx, g):
+    fused, row, x0p, wx, wy = ctx.saved_tensors
+    g = g.to(fused.dtype).contiguous()
+    d_fused = d_wx = d_wy = None
+    if ctx.needs_input_grad[0]:
+        d_fused = scatter_kernel.patch_scatter(
+            g, row, x0p, wx, wy, fused.shape)  # in the map dtype
+    if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+        d_wx, d_wy = gather_kernel.patch_corner_grads(
+            fused, g, row, x0p, wx, wy)
+    return d_fused, None, None, d_wx, d_wy, None
+
+
+patch_sample_op.register_autograd(_patch_sample_backward,
+                                  setup_context=_save_inputs)
+
+
+def patch_sample(fused, row, x0p, wx, wy, site="img"):
     """fused [S, R, Wp, 2C]; row / x0p int [S, K]; wx / wy float [S, K]
     (see `ops.gather_kernel` for the contract). Returns [S, K, C] in the map
     dtype, differentiable in fused, wx and wy."""
+    if site not in SITES:
+        raise ValueError(f"site {site!r} not in {SITES}")
     c = lambda t, dt: t.to(dt).contiguous()
-    return PatchSample.apply(fused.contiguous(), c(row, torch.int32),
-                             c(x0p, torch.int32), c(wx, torch.float32),
-                             c(wy, torch.float32))
+    return patch_sample_op(fused.contiguous(), c(row, torch.int32),
+                           c(x0p, torch.int32), c(wx, torch.float32),
+                           c(wy, torch.float32), site)

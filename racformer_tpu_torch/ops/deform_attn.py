@@ -8,7 +8,7 @@ i.e. pixel coordinates `x_pix = x * W - 0.5`, output the attention-weighted
 sum over points per head. The eval path's fold gather (K1) sums
 `fold_points` consecutive points in the kernel and the remaining
 `P // fold_points` partial sums are added here in f32; the training path
-(`fold_points=0`) samples every point with `PatchSample` (K2 forward, K3 / K4
+(`fold_points=0`) samples every point with `patch_sample_op` (K2 forward, K3 / K4
 backward) and sums the weighted points here, in the map dtype.
 """
 
@@ -65,7 +65,7 @@ def deform_attn_single_level(
     Q, P = x_norm.shape[1], x_norm.shape[3]
     if not fold_points:
         out = patch_sample(value.reshape(S, M * R0, Wp, c2), *bev_points(
-            x_norm, y_norm, true_hw, R0, value.dtype))
+            x_norm, y_norm, true_hw, R0, value.dtype), site="bev")
         out = out.reshape(S, Q, M, P, c2 // 2)
         out = (out * weights[..., None].to(out.dtype)).sum(3)
         return out.reshape(S, Q, M * c2 // 2)

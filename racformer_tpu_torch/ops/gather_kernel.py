@@ -6,12 +6,12 @@
     fold sum, the eval path;
   * K2, the patch gather `patch_gather` (Pallas `_kernel`, CUDA
     `csrc/patch_gather.cu`): the per-point bilinear sample, the forward of the
-    training path's `ops.bilinear.PatchSample`;
+    training path's `ops.bilinear.patch_sample_op`;
   * K4, the corner re-gather `patch_corner_grads` (Pallas `_kernel_corners`
     plus the XLA reduction after it, CUDA `csrc/patch_corner_grads.cu`): the
-    location gradients d_wx, d_wy of `PatchSample`.
+    location gradients d_wx, d_wy of `patch_sample_op`.
 
-K3, the map gradient of `PatchSample`, is in `ops.scatter_kernel`. Each
+K3, the map gradient of `patch_sample_op`, is in `ops.scatter_kernel`. Each
 kernel's source note says what bounds it and how the design follows. Every
 kernel has a plain PyTorch version here (`*_reference`), used for CPU
 tensors, by the tests, and by `chip_smoke.py` to check the kernel. The

@@ -102,7 +102,7 @@ def msmv_sample_levels(
     rcat: int,
 ) -> torch.Tensor:
     """The training path of `msmv_sample_fold` (same arguments and result):
-    one `PatchSample` over every level's points, then the per-level weights
+    one `patch_sample_op` over every level's points, then the per-level weights
     and the level sum in the map dtype, as the JAX per-level path
     (`msmv_sample_xyv` with the Pallas forward) computes them. wx / wy are
     rounded to the map dtype, as there. Differentiable in the map, the

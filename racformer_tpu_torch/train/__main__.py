@@ -5,6 +5,7 @@ on one CUDA device unless `--device cpu` is asked for:
         --config racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py \\
         [--work-dir DIR] [--override k=v ...] [--resume] [--synthetic] \\
         [--load-from FILE] [--ema] [--match-stats] [--fp16-loss-scale S]
+    torchrun --nproc_per_node=N -m racformer_tpu_torch.train --distributed ...
 
 Seeded random weights (or `load_from` / `--load-from`, through
 `revise_keys`), the config's model, optimizer, batch size per device and
@@ -25,8 +26,19 @@ streaming, capped at `evaluation.max_samples`), the metrics logged as
 `phase: "val"`, and a new best of `evaluation.save_best` saved under
 `<work_dir>/best`. The random draws come from a generator seeded with
 seed + 17 at every start, a resumed run's too, as `train.py` restarts its
-key. `--distributed` (DDP) and decoder remat policies other than "full" are
-not ported and are refused.
+key.
+
+`--distributed`, under `torchrun` (`utils.distributed`: NCCL on CUDA, one
+card per process, gloo with `--device cpu`): the global batch is
+`batch_size_per_chip` times the world, each rank loads its rows of it
+(`hostdata.host_batch_indices`), the model runs under
+`DistributedDataParallel` with the gradients summed over the ranks
+(`step.sum_gradients`), BatchNorm statistics and the losses' normalizers
+cover the global batch. Rank 0 alone writes the logs, the checkpoints and
+`best/`; every rank restores a `--resume` and the restored digests must
+agree. The in-training eval is the offline protocol sharded over the ranks
+(`evaluation.mode=streaming` falls back to it, as `train.py` does with
+several processes).
 """
 
 from __future__ import annotations
@@ -43,14 +55,13 @@ import torch
 from ..config import Config
 from ..data import SyntheticDataset
 from ..model import RaCFormer, config_kwargs, random_init_
+from ..utils import distributed
 from .hooks import DepthWeightCurriculum
 from .hostdata import epoch_order, host_batch_indices
 from .optim import Optimizer
-from .step import make_train_step
+from .step import make_train_step, sum_gradients
 
 HOST_KEYS = ("token", "scene", "timestamp")  # metadata, not model inputs
-DDP_REFUSAL = ("--distributed (DDP over several devices) is not ported: it "
-               "is the next training item of ROADMAP.md §1")
 
 
 def parse_args(argv=None):
@@ -75,7 +86,7 @@ def parse_args(argv=None):
                    help="dump per-decoder-layer Hungarian match statistics "
                         "each epoch")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (refused)")
+                   help="one process per device under torchrun (DDP)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (the default) or cpu, which runs every kernel's "
                         "plain version")
@@ -104,11 +115,12 @@ def accumulation_steps(accum: int, batch: int) -> int:
 
 
 def batch_indices(seed: int, steps_per_epoch: int, num_samples: int,
-                  batch: int):
-    """step -> the dataset indices of that step's batch: each epoch a fresh
-    permutation of the dataset from (seed, epoch), as `train.py` draws.
-    Keeps the current and the next epoch's order, so the prefetcher can run
-    ahead across the boundary."""
+                  batch: int, world: int = 1, rank: int = 0):
+    """step -> the dataset indices of rank `rank`'s rows of that step's
+    global batch of `batch` samples: each epoch a fresh permutation of the
+    dataset from (seed, epoch), as `train.py` draws. Keeps the current and
+    the next epoch's order, so the prefetcher can run ahead across the
+    boundary."""
     orders: dict = {}
 
     def indices(step: int) -> list:
@@ -118,7 +130,7 @@ def batch_indices(seed: int, steps_per_epoch: int, num_samples: int,
                 del orders[e]
             orders[epoch] = epoch_order(seed, epoch, num_samples)
         return host_batch_indices(orders[epoch], step % steps_per_epoch,
-                                  batch, 1, 0)
+                                  batch, world, rank)
 
     return indices
 
@@ -164,18 +176,26 @@ def train_dataset(cfg, model: RaCFormer, batch: int, synthetic: bool,
 
 
 def build(cfg, device, seed: int, max_steps=None, synthetic: bool = True,
-          match_stats: bool = False, loss_scale: float = 0.0):
-    """(model, optimizer, train_step, dataset, batch size) of a config (a
-    dict of the config file's names): the model with seeded random weights
-    in train mode on `device`, the training set (`train_dataset`), the
-    optimizer's schedule over `schedule(...)`'s total steps."""
+          match_stats: bool = False, loss_scale: float = 0.0,
+          ddp: bool = False):
+    """(model, optimizer, train_step, dataset, batch size per device) of a
+    config (a dict of the config file's names): the model with seeded
+    random weights in train mode on `device`, the training set
+    (`train_dataset`), the optimizer's schedule over `schedule(...)`'s
+    total steps at the global batch (the batch per device times the
+    world). With `ddp` the step runs the model under
+    `DistributedDataParallel`: every parameter gets a gradient in train
+    mode (DN included), so `find_unused_parameters` stays off, and the
+    BatchNorm statistics are equal on every rank by construction, so the
+    buffers are not broadcast before each forward."""
     with torch.device(device):
         model = RaCFormer(**config_kwargs(cfg))
     random_init_(model, torch.Generator().manual_seed(seed)).train()
     batch = int(cfg.get("batch_size_per_chip", 2))
+    global_batch = batch * distributed.world()
     accum = accumulation_steps(int(cfg.get("accumulate_steps", 1)), batch)
-    dataset = train_dataset(cfg, model, batch, synthetic, seed)
-    _, total_steps = schedule(len(dataset), batch,
+    dataset = train_dataset(cfg, model, global_batch, synthetic, seed)
+    _, total_steps = schedule(len(dataset), global_batch,
                               int(cfg.get("total_epochs", 36)), max_steps)
     opt = dict(cfg.get("optimizer", {}))
     optimizer = Optimizer(
@@ -183,8 +203,17 @@ def build(cfg, device, seed: int, max_steps=None, synthetic: bool = True,
         weight_decay=opt.get("weight_decay", 0.01), total_steps=total_steps,
         warmup_steps=opt.get("warmup_steps", 500),
         clip_norm=opt.get("clip_norm", 35.0))
+    wrapped = None
+    if ddp:
+        from torch.nn.parallel import DistributedDataParallel
+
+        wrapped = DistributedDataParallel(
+            model, device_ids=[device] if torch.device(device).type == "cuda"
+            else None, broadcast_buffers=False, find_unused_parameters=False)
+        wrapped.register_comm_hook(None, sum_gradients)
     step = make_train_step(model, optimizer, dict(cfg.get("depth", {})), accum,
-                           match_stats=match_stats, loss_scale=loss_scale)
+                           match_stats=match_stats, loss_scale=loss_scale,
+                           ddp=wrapped)
     return model, optimizer, step, dataset, batch
 
 
@@ -213,24 +242,33 @@ def launch_counts():
 
 def main(argv=None):
     """Runs the training; returns a summary for callers in process: the
-    work dir, the first and last step, the digests of the last save and of
-    a restored state, each step's host ms, loader wait and kernel launches,
-    each flush block's synchronized ms, each checkpoint save and in-training
-    eval, the model and the last eval's predictions."""
+    work dir, the world and global batch, the first and last step, the
+    digests of the last save and of a restored state, each step's host
+    ms, loader wait and kernel launches, each flush block's synchronized
+    ms, each checkpoint save and in-training eval, the model and the last
+    eval's predictions."""
     args = parse_args(argv)
-    if args.distributed:
-        raise SystemExit(DDP_REFUSAL)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("the train driver needs a CUDA device (pass --device "
                          "cpu to run the plain versions on the CPU)")
-    device = torch.device(args.device)
+    owned = args.distributed and not torch.distributed.is_initialized()
+    device = (distributed.init(args.device) if args.distributed
+              else torch.device(args.device))
+    try:
+        return _train(args, device)
+    finally:
+        if owned:
+            distributed.shutdown()
 
+
+def _train(args, device):
     from ..data.prefetch import PrefetchLoader
     from ..tools.convert_weights import load_pretrained
     from ..utils.logging import MetricLogger, backup_code
     from .checkpoint import CheckpointManager
     from .hooks import MatchStatsHook, ema_init, ema_update
 
+    rank, world = distributed.rank(), distributed.world()
     cfg = Config.fromfile(args.config).merge_override(args.override)
     try:
         config_kwargs(cfg)
@@ -239,9 +277,10 @@ def main(argv=None):
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    backup_code(work_dir)
-    with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
-        f.write(cfg.dump())
+    if rank == 0:
+        backup_code(work_dir)
+        with open(os.path.join(work_dir, "config_dump.py"), "w") as f:
+            f.write(cfg.dump())
 
     match_stats = bool(args.match_stats or cfg.get("match_stats"))
     fp16 = dict(cfg.get("fp16") or {})
@@ -249,9 +288,11 @@ def main(argv=None):
                   else float(fp16.get("loss_scale", 0.0)))
     model, optimizer, train_step, dataset, batch = build(
         cfg, device, args.seed, args.max_steps, synthetic=args.synthetic,
-        match_stats=match_stats, loss_scale=loss_scale)
+        match_stats=match_stats, loss_scale=loss_scale, ddp=args.distributed)
+    global_batch = batch * world
     steps_per_epoch, total_steps = schedule(
-        len(dataset), batch, int(cfg.get("total_epochs", 36)), args.max_steps)
+        len(dataset), global_batch, int(cfg.get("total_epochs", 36)),
+        args.max_steps)
 
     path = args.load_from or cfg.get("load_from")
     if path and os.path.exists(path):
@@ -261,15 +302,20 @@ def main(argv=None):
     ema = ema_init(model) if args.ema else None
     start_step = 0
     if args.resume:
-        restored = ckpt.restore_latest(model, optimizer, ema)
+        restored = ckpt.restore_latest(model, optimizer, ema,
+                                       map_location=device)
+        digests = distributed.all_gather_object(ckpt.restored_digest)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the ranks restored different states: "
+                               f"digests {digests}")
         if restored:
             start_step = restored
             print(f"resumed from step {start_step}")
 
-    match_hook = (MatchStatsHook(os.path.join(work_dir, "match_stats"))
-                  if match_stats else None)
+    match_hook = (MatchStatsHook(os.path.join(work_dir, "match_stats"),
+                                 rank=rank) if match_stats else None)
     curriculum = DepthWeightCurriculum(start_epoch=18)
-    logger = MetricLogger(work_dir, total_steps=total_steps)
+    logger = MetricLogger(work_dir, total_steps=total_steps, rank=rank)
     gen = torch.Generator().manual_seed(args.seed + 17)
 
     # --- the in-training eval, at true epoch boundaries ------------------
@@ -277,11 +323,18 @@ def main(argv=None):
     eval_interval = int(ev_cfg.get("interval", 2))
     eval_max = ev_cfg.get("max_samples")
     eval_mode = str(ev_cfg.get("mode", "offline"))
+    if eval_mode == "streaming" and world > 1:
+        # train.py: a single-controller protocol; several processes fall
+        # back to the offline one
+        print("evaluation.mode=streaming is a single-process protocol; "
+              "multi-process run falls back to offline")
+        eval_mode = "offline"
     is_vod = cfg.get("dataset_type") == "vod"
     best_key = ev_cfg.get("save_best", "mAP3D_all" if is_vod else "NDS")
     ev = {"dataset": None, "best": float("-inf"), "last_step": -1,
           "best_mgr": None}
-    result = {"work_dir": work_dir, "start_step": start_step,
+    result = {"work_dir": work_dir, "world": world,
+              "global_batch": global_batch, "start_step": start_step,
               "restored_digest": ckpt.restored_digest,
               "steps": [], "blocks": [], "saves": [], "evals": [],
               "model": model, "eval_preds": None}
@@ -318,6 +371,8 @@ def main(argv=None):
             "k1_launches": launch_counts()[0] - k1})
         if not gts:
             return
+        # every rank holds all predictions, so the metrics and the best
+        # checkpoint's decision agree on every rank
         metrics = detection_metrics(
             preds, gts, is_vod=is_vod,
             class_names=list(cfg.get("class_names", [])) or None,
@@ -329,16 +384,22 @@ def main(argv=None):
         score = scalars.get(best_key)
         if score is not None and score > ev["best"]:
             ev["best"] = score
-            if ev["best_mgr"] is None:
-                ev["best_mgr"] = CheckpointManager(
-                    os.path.join(work_dir, "best"), max_keep=1, verify=False)
-            ev["best_mgr"].save(step + 1, model, optimizer)
-            with open(os.path.join(work_dir, "best", "metrics.json"), "w") as f:
-                json.dump({"step": step + 1, best_key: score, **scalars}, f)
+            if rank == 0:
+                if ev["best_mgr"] is None:
+                    ev["best_mgr"] = CheckpointManager(
+                        os.path.join(work_dir, "best"), max_keep=1,
+                        verify=False)
+                ev["best_mgr"].save(step + 1, model, optimizer)
+                with open(os.path.join(work_dir, "best", "metrics.json"),
+                          "w") as f:
+                    json.dump({"step": step + 1, best_key: score, **scalars},
+                              f)
+            distributed.barrier()
 
     # --- the loop --------------------------------------------------------
     loader = PrefetchLoader(
-        dataset, batch_indices(args.seed, steps_per_epoch, len(dataset), batch),
+        dataset, batch_indices(args.seed, steps_per_epoch, len(dataset),
+                               global_batch, world, rank),
         total_steps, start_step=start_step,
         num_workers=int(cfg.get("data_workers", 4)), prefetch=2,
         put=lambda b: to_device(b, device))
@@ -394,8 +455,10 @@ def main(argv=None):
                 flush()
                 if match_hook is not None:
                     match_hook.after_epoch(epoch)
-                result["saves"].append(ckpt.save(step + 1, model, optimizer,
-                                                 ema=ema))
+                if rank == 0:  # the state is equal on every rank
+                    result["saves"].append(ckpt.save(step + 1, model,
+                                                     optimizer, ema=ema))
+                distributed.barrier()
                 # eval fires on true epoch boundaries only; a --max-steps
                 # run that stops mid-epoch skips it
                 if (eval_interval > 0 and (step + 1) % steps_per_epoch == 0

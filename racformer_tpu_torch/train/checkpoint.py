@@ -9,6 +9,8 @@ Layout: `<work_dir>/checkpoints/<step>/state.pth`, one file per step, with
      keeps an EMA of its parameters}.
 
 Each write goes to a temporary name and is then renamed into place. With
+several ranks the train driver saves on rank 0 alone (the state is equal on
+every rank) and every rank restores. With
 `verify`, the file is read back (`weights_only=True`) and a SHA-256 over
 every tensor's bytes, in key order, is compared with the digest of what was
 written; a mismatch deletes the file and writes it again, `retries` times in
@@ -80,8 +82,8 @@ def _write(state: Dict, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _read(path: str) -> Dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+def _read(path: str, map_location="cpu") -> Dict:
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def checkpoint_steps(work_dir: str) -> list:
@@ -151,19 +153,20 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, str(old)))
 
     def restore_latest(self, model: torch.nn.Module, optimizer,
-                       ema: Optional[Dict[str, torch.Tensor]] = None
-                       ) -> Optional[int]:
+                       ema: Optional[Dict[str, torch.Tensor]] = None,
+                       map_location="cpu") -> Optional[int]:
         """Restore the newest checkpoint into `model` and `optimizer` (onto
         their device) and, given `ema`, into it; returns the step, or None
         when there is none. Either layout restores either way: a checkpoint
         saved without an EMA seeds `ema` from the restored parameters, and
         one saved with an EMA restores without one when `ema` is None.
         `restored_digest` is then the digest of the restored state, equal
-        to the saved one when every tensor came back bit for bit."""
+        to the saved one when every tensor came back bit for bit. The file
+        is read onto `map_location` (a rank's own device)."""
         step = self.latest_step()
         if step is None:
             return None
-        state = _read(self.path(step))
+        state = _read(self.path(step), map_location)
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         if ema is not None:

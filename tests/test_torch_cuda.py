@@ -343,7 +343,7 @@ def test_corner_grads_are_repeatable(cuda, dtype):
 
 @pytest.mark.cuda
 def test_patch_sample_grads_on_card(cuda):
-    """`PatchSample` forward and backward on the card against the same
+    """`patch_sample_op` forward and backward on the card against the same
     function on the CPU (plain versions)."""
     from racformer_tpu_torch.ops.bilinear import patch_sample
 

@@ -1,5 +1,5 @@
 """The training path's sampler of the PyTorch port against the JAX package:
-`ops.bilinear.PatchSample` (kernels K2 forward, K3 and K4 backward) against
+`ops.bilinear.patch_sample_op` (kernels K2 forward, K3 and K4 backward) against
 the JAX custom VJP `_patch_sample_pallas` (whose Pallas kernels run in
 interpret mode here), reached through `bilinear_sample_views_nhwc`, so the
 coordinate handling (floor, clamp, shift, lerp weights rounded to the map

@@ -3,7 +3,7 @@ package, with gradients: the image site (`ops.msmv.msmv_sample_levels` over
 the level-concatenated map against the JAX per-level path
 `msmv_sample_xyv(pallas=True)`) and the BEV site
 (`ops.deform_attn.deform_attn_single_level(fold_points=0)` against
-`deform_attn_single_level(pallas=True)`). Both run `PatchSample` (K2
+`deform_attn_single_level(pallas=True)`). Both run `patch_sample_op` (K2
 forward, K3 / K4 backward; plain versions on the CPU) against the JAX
 custom VJP with its Pallas kernels in interpret mode.
 

@@ -10,7 +10,9 @@ End to end on the CPU (`--device cpu`, the tiny overrides of
 `tests/test_drivers.py`, 2 decoder layers, 2 steps per epoch): a run of 2
 steps and a resumed run to step 4, with the EMA, the match statistics,
 `--load-from` and the in-training eval at every epoch; the eval driver on
-the work dir; one step on a fabricated nuScenes split; the refusals.
+the work dir; one step on a fabricated nuScenes split; the refusals
+(`--distributed` without torchrun's environment, an unknown remat
+policy, no CUDA device).
 """
 
 import contextlib
@@ -389,10 +391,15 @@ def test_nuscenes_training_set_as_train_py(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--distributed"], "DDP.*ROADMAP"),
-    (["--override", "decoder.remat_policy=dots"], "remat_policy.*ROADMAP"),
+    (["--distributed"], "torchrun"),
+    (["--override", "decoder.remat_policy=nope"],
+     "unknown decoder remat_policy 'nope'"),
     ([], "CUDA")])
 def test_refusals(extra, match, monkeypatch, tmp_path):
+    """--distributed without torchrun's environment, an unknown remat
+    policy, and no CUDA device without --device cpu."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     device = [] if match == "CUDA" else ["--device", "cpu"]
     with pytest.raises(SystemExit, match=match):

@@ -2,7 +2,8 @@
 same numpy inputs:
 
 * `config_kwargs` honours or refuses every field of a config's `model`
-  block (the old copy dropped `bn_frame0_only` silently);
+  block (the old copy dropped `bn_frame0_only` silently) and passes the
+  JAX package's five decoder remat policies on;
 * `match_cost_cartesian` (1e-5), `ema_update` (1e-6 relative at steps 0,
   1, 2000 and 1e5), `MatchStatsHook` (JSON files byte-equal),
   `detection_loss(with_match=True)` (`_matched_q` equal, `_match_cost`
@@ -13,12 +14,15 @@ same numpy inputs:
 * the `bn_frame0_only` train-mode forward and its new BatchNorm statistics
   (the slice tests' tolerances, 1e-3);
 * `MetricLogger` (`metrics.jsonl` records equal) and `PrefetchLoader`
-  (the same batches in the same order, the same raises).
+  (the same batches in the same order, the same raises; a batch queued
+  before a worker's failure is still returned at its own step).
 """
 
 import json
 import pathlib
 import sys
+import threading
+import time
 from types import SimpleNamespace
 
 import flax.linen as fnn
@@ -97,13 +101,30 @@ def test_config_kwargs_refuses_what_the_port_cannot_honour(field):
         config_kwargs(cfg)
 
 
-def test_config_kwargs_refuses_other_remat_policies():
+def test_config_kwargs_refuses_other_remat_policies(monkeypatch):
+    """The five JAX policies pass through to the decoder; another name
+    raises the JAX package's ValueError, from the config or from
+    RACFORMER_REMAT_POLICY."""
+    monkeypatch.delenv("RACFORMER_REMAT_POLICY", raising=False)
     cfg = Config.fromfile(str(FLAGSHIP))
-    cfg["decoder"]["remat_policy"] = "full"
-    assert "remat_policy" not in config_kwargs(cfg)["decoder"]
-    cfg["decoder"]["remat_policy"] = "dots"
-    with pytest.raises(ValueError, match="remat_policy.*ROADMAP"):
+    for policy in ("full", "dots", "dots_no_batch", "save_sampled",
+                   "save_bev"):
+        cfg["decoder"]["remat_policy"] = policy
+        assert config_kwargs(cfg)["decoder"]["remat_policy"] == policy
+    cfg["decoder"]["remat_policy"] = "nope"
+    with pytest.raises(ValueError) as port_err:
         config_kwargs(cfg)
+    del cfg["decoder"]["remat_policy"]
+    monkeypatch.setenv("RACFORMER_REMAT_POLICY", "nope")
+    with pytest.raises(ValueError, match="unknown decoder remat_policy"):
+        config_kwargs(cfg)
+    # the JAX decoder's message, from its source
+    src = (REPO / "racformer_tpu" / "nn" / "decoder.py").read_text()
+    assert ('f"unknown decoder remat_policy {pol_name!r}; "\n'
+            '                f"expected one of {sorted(policies)}")') in src
+    names = ["dots", "dots_no_batch", "full", "save_bev", "save_sampled"]
+    assert str(port_err.value) == (f"unknown decoder remat_policy 'nope'; "
+                                   f"expected one of {names}")
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
@@ -416,11 +437,16 @@ def test_prefetch_loader_batches_equal_jax():
 
 
 class _Failing:
-    def __init__(self, bad):
+    """Sample `bad` raises; it first waits for `release` to be set."""
+
+    def __init__(self, bad, release=None):
         self.bad = bad
+        self.release = release
 
     def __getitem__(self, idx):
         if idx == self.bad:
+            if self.release is not None:
+                assert self.release.wait(timeout=60)
             raise ValueError(f"sample {idx} is unreadable")
         return {"x": np.full((2,), idx)}
 
@@ -429,15 +455,38 @@ class _Failing:
                          ids=["port", "jax"])
 def test_prefetch_loader_raises_as_jax(cls):
     """Asked for another step than the next: out of sync. A worker's
-    exception reaches the consumer at the step that hit it."""
+    exception reaches the consumer at the step that hit it. The bad sample
+    fails only once step 0's batch has been taken, so both loaders (the
+    JAX package's raises a worker's error after any batch it pops) see
+    the same order of events in every run."""
     loader = cls(_Failing(bad=-1), _index_fn, 3)
     try:
         with pytest.raises(RuntimeError, match="out of sync"):
             loader.get(1)
     finally:
         loader.close()
-    loader = cls(_Failing(bad=4), _index_fn, 3)  # step 1 reads 3 and 4
+    release = threading.Event()
+    loader = cls(_Failing(bad=4, release=release), _index_fn, 3)  # step 1
+    try:                                                       # reads 3, 4
+        np.testing.assert_array_equal(loader.get(0)["x"], [[0, 0], [1, 1]])
+        release.set()
+        with pytest.raises(ValueError, match="sample 4"):
+            loader.get(1)
+    finally:
+        release.set()
+        loader.close()
+
+
+def test_prefetch_loader_returns_batches_queued_before_a_failure():
+    """The race the port's loader closes: the worker has already failed on
+    step 1 when step 0 is asked for; step 0's batch, queued before the
+    failure, is still returned, and step 1 raises."""
+    loader = PrefetchLoader(_Failing(bad=4), _index_fn, 3)
     try:
+        deadline = time.monotonic() + 60
+        while loader._err is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert loader._err is not None
         np.testing.assert_array_equal(loader.get(0)["x"], [[0, 0], [1, 1]])
         with pytest.raises(ValueError, match="sample 4"):
             loader.get(1)
