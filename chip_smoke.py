@@ -127,10 +127,36 @@ Phases, each printed as it runs; any failure exits non-zero:
      and gradients (from the same seeded weights) against full's within
      phase 9's bound. A policy that does not fit in the card's memory fails
      the run.
+ 18. (run last) the VoD config (racformer_tpu/configs/racformer_vod.py:
+     1 camera, 1 frame, Q = 600, 3 classes) unreduced, on a split it writes
+     in the KITTI-format VoD layout (8 frames of 1936x1216 JPEG with the
+     VoD camera's P2, radar .bin files, GT with DontCare): the train driver
+     for one epoch of 4 steps (batch 2 in 2 microbatches) with its
+     checkpoint and an in-training KITTI eval that keeps the best by
+     mAP3D_all; the eval driver on that work dir offline, --streaming and
+     --streaming --streams 4, the 4-stream predictions matched to the
+     single-stream ones sample by sample; K1 launched 18 times per sample
+     (offline, one stream) and per 4-stream step, K2 72, K3 and K4 36 per
+     train step, as the flagship's (neither count depends on cameras or
+     frames); K1 on a VoD eval step's own inputs and K2-K4 on a VoD train
+     step's, against their plain versions, timed, with their bounds;
+     `tools.profile_gpu`'s category split of one eval and one train step;
+     then `tools.vod_smoke` (the original's fixture and tiny widths, 10 of
+     its 40 epochs: 60 steps): every step's grad_norm finite (the losses
+     are nan_to_num'd, as the JAX package's are) and the last fifth's mean
+     loss below the first fifth's, the untrained and trained mAP3D_all /
+     mAP3D_corridor printed; then K1-K4 at the smoke's widths (16 channels
+     per group) on its fixture's own inputs, one train step and one eval
+     step of the model its driver builds (and one eval step on a frame of
+     the VoD-layout split, where the image points are in view), against
+     their plain versions, timed, with their bounds.
+     Prints each step's ms, the loader's wait, the checkpoint's bytes, each
+     protocol's samples/s and the peak memory beside the card's name and
+     power limit.
 The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
-13, 14 and 16, the K2-K4 entries theirs on phases 8, 14, 15 and 17, each
-counted from 0 just before the phase's run (phases 15 and 16 count in their
-processes and report back, summed over the ranks).
+13, 14, 16 and 18, the K2-K4 entries theirs on phases 8, 14, 15, 17 and 18,
+each counted from 0 just before the phase's run (phases 15 and 16 count in
+their processes and report back, summed over the ranks).
 No module of JAX or of the JAX package may have been imported by the end.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -593,9 +619,11 @@ def step_fold_inputs(caught, tag):
     """K1 on its own inputs from one eval step's first decoder iteration, at
     each site: the maps' 16-byte alignment (the wrapper raises on others),
     the kernel against its plain version, timed, and the share of the
-    column reads that go to distinct columns (what the bound counts)."""
+    column reads that go to distinct columns (what the bound counts).
+    Returns {site: (ms, bound ms)}."""
     from racformer_tpu_torch.ops import gather_kernel as gk
 
+    times = {}
     for site, (ptrs, args) in caught.items():
         fmap, pts, fold = args[0], args[1:6], args[6]
         shape = tuple(fmap.shape)
@@ -607,16 +635,18 @@ def step_fold_inputs(caught, tag):
         t_p = median_ms(lambda: gk.patch_sample_fold_reference(*args), reps=3,
                         warmup=1)
         t_b, by = bound_ms("gather_fold", shape, pts, fmap.element_size(), fold)
+        times[site] = (t_k, t_b)
         n = pts[0].numel()
         print(f"{tag} K1 on the step's inputs, {site} map {shape} {fmap.dtype} "
               f"K={pts[0].shape[1]} fold={fold}, map at {ptrs[0]:#x} "
               f"(16-byte aligned): max_abs_err {err:.3g} ({tol}) "
               f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} "
-              f"ms, bound {t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; distinct "
+              f"ms, bound {t_b:.4g} ms ({by}), share {t_b / t_k:.3g}; distinct "
               f"columns per column read "
               f"{unique_columns(shape, pts[0], pts[1]) / (2 * n):.3f}")
         check(ok, f"K1 disagrees with its plain version on the step's {site} "
                   f"inputs")
+    return times
 
 
 def profiled(fn, runs):
@@ -1146,8 +1176,10 @@ def run_driver(main, argv):
 def check_driver_steps(tag, res, want):
     """Every step of a train-driver run launched K1-K4 `want` times."""
     bad = [s for s in res["steps"] if tuple(s["launches"]) != want]
-    print(f"[14] {tag}: launches per step (K1, K2, K3, K4) "
-          f"{[tuple(s['launches']) for s in res['steps']]}, expected {want}")
+    seen = [tuple(s["launches"]) for s in res["steps"]]
+    if len(seen) > 8:  # as counts: {launches: steps}
+        seen = {k: seen.count(k) for k in dict.fromkeys(seen)}
+    print(f"{tag}: launches per step (K1, K2, K3, K4) {seen}, expected {want}")
     check(res["steps"] and not bad, f"{tag}: steps launched {bad}")
 
 
@@ -1209,7 +1241,7 @@ def phase_train_driver(cfg, card):
                       f"{ev.get('metrics', {}).get('NDS')}")
             check(saves and all(sv["verified"] for sv in saves),
                   f"run {name}: a checkpoint failed verification")
-            check_driver_steps(f"run {name}", res, want)
+            check_driver_steps(f"[14] run {name}", res, want)
             check(all(ev["k1_launches"] == 18 * ev["samples"] > 0
                       for ev in res["evals"]) and len(res["evals"]) == 1,
                   f"run {name}: in-training eval K1 launches {res['evals']}")
@@ -1296,7 +1328,7 @@ def phase_train_driver(cfg, card):
                   f"{s['host_ms']:.1f}, loader wait ms {s['wait_ms']:.2f} "
                   f"(JPEG decode, ida_aug, bev_aug in the loader's threads)")
         check(res["last_step"] == 2, "nuScenes split: not 2 steps")
-        check_driver_steps("nuScenes split", res, want)
+        check_driver_steps("[14] nuScenes split", res, want)
         rec = [json.loads(line) for line in
                (Path(tmp) / "nusc" / "metrics.jsonl").read_text().splitlines()]
         check(all(np.isfinite(r["loss_total"]) for r in rec),
@@ -1739,14 +1771,15 @@ def phase_train(cfg, dev, profile_path):
     return model, batches[0], launches, steady, step_ms[0], peak
 
 
-def step_own_inputs(train_step, batch, gen):
+def step_own_inputs(train_step, batch, gen, tag="[8]"):
     """K2, K3 and K4 on their own inputs from one train step (each kernel's
     first call at each map shape), against their plain versions and timed,
     with the statistics that set this work apart from phase 7's uniform
     points: the largest row bucket, the share of rows with points, the
     points in the busiest 1% of rows, the busiest column, and the share of
     the column reads that go to distinct columns (what the bound counts;
-    the rest L2 has to absorb)."""
+    the rest L2 has to absorb). Returns {(kernel, map shape): (ms, bound
+    ms)}."""
     from racformer_tpu_torch.ops import gather_kernel as gk
     from racformer_tpu_torch.ops import scatter_kernel as sk
 
@@ -1776,6 +1809,7 @@ def step_own_inputs(train_step, batch, gen):
             setattr(mod, kname, origs[kname])
     torch.cuda.synchronize()
     labels = {"patch_gather": "K2", "patch_scatter": "K3", "patch_corner_grads": "K4"}
+    times = {}
     for kname, (_, plain, first) in spied.items():
         for shape, args in caught[kname].items():
             S, R, Wp, _ = shape
@@ -1792,10 +1826,11 @@ def step_own_inputs(train_step, batch, gen):
             counts = torch.bincount(key, minlength=S * R).sort(descending=True).values
             cols = torch.bincount(x0p.reshape(-1).long(), minlength=Wp)
             n = key.numel()
-            print(f"[8] {labels[kname]} on the step's inputs, map {shape} "
+            times[kname, shape] = (t_k, t_b)
+            print(f"{tag} {labels[kname]} on the step's inputs, map {shape} "
                   f"K={row.shape[1]} {dtype}: max_abs_err {detail} ({tol}) "
                   f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, bound "
-                  f"{t_b:.4f} ms ({by}), share {t_b / t_k:.3f}; distinct columns "
+                  f"{t_b:.4g} ms ({by}), share {t_b / t_k:.3g}; distinct columns "
                   f"per column read {unique_columns(shape, row, x0p) / (2 * n):.3f}, "
                   f"largest bucket {counts[0].item()}, rows with points "
                   f"{(counts > 0).float().mean().item():.3f}, points in the busiest "
@@ -1805,6 +1840,7 @@ def step_own_inputs(train_step, batch, gen):
             check(ok, f"{labels[kname]} disagrees with its plain version on the "
                       f"step's inputs {shape}")
         caught[kname].clear()
+    return times
 
 
 def grads_of(model, metrics, clip=35.0):
@@ -2402,6 +2438,374 @@ def phase_remat(cfg, dev, card):
     return tuple(int(x) for x in totals)
 
 
+VOD_CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_vod.py"
+VOD_SAMPLES = 8  # one epoch of 4 train steps at the config's batch 2
+# the VoD smoke's epochs here: 10 of the original's 40 (60 of its 240
+# steps, ~1 s each on the card; the tool's CLI runs all 40); the loss's
+# fifths are means over 12 steps each
+SMOKE_EPOCHS = 10
+VOD_HW = (1216, 1936)  # the VoD camera's images, native
+# the VoD camera's P2 at its native size (the dataset's calibration,
+# rounded); the reader scales it with the images
+VOD_P2 = np.array([[1495.5, 0.0, 961.3, 0.0], [0.0, 1495.5, 624.9, 0.0],
+                   [0.0, 0.0, 1.0, 0.0]])
+# radar (x forward, y left, z up) to camera (x right, y down, z forward),
+# the radar 0.5 m below and 0.2 m behind the camera
+VOD_TR = np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, -0.5],
+                   [1.0, 0.0, 0.0, 0.2], [0.0, 0.0, 0.0, 1.0]])
+
+
+def write_vod_split(root):
+    """A split in the KITTI-format VoD layout that the port's reader takes:
+    VOD_SAMPLES frames, each a JPEG at VoD's native 1936x1216 with its
+    camera's P2 at that size (so the reader resizes it to the model's
+    256x704 and scales P2, as on real data) and a radar-to-camera
+    Tr_velo_to_cam, a radar .bin of 400-1200 5-sweep points in the radar
+    frame (float32 rows of x, y, z, RCS, v_r, v_r_comp, time; the config
+    keeps 1024) and 4-16 GT boxes of the three classes and DontCare in the
+    camera frame, as KITTI labels are; all from SEED. Returns the info
+    path."""
+    import pickle
+
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 30)
+    H, W = VOD_HW
+    y, x = np.mgrid[0:H, 0:W]
+    names = np.array(["Car", "Pedestrian", "Cyclist", "DontCare"])
+    dims = np.array([[4.0, 1.6, 1.9], [0.7, 1.8, 0.7], [1.8, 1.7, 0.6],
+                     [1.0, 1.0, 1.0]], np.float32)  # l, h, w
+    infos = []
+    for i in range(VOD_SAMPLES):
+        shift = int(rng.integers(0, 256))
+        img = np.stack([(x // 9 + shift) % 256, (y // 6 + 40 * i) % 256,
+                        ((x // 50 + y // 50) % 2) * 180 + 30], -1)
+        image = root / f"{i:05d}.jpg"
+        Image.fromarray(img.astype(np.uint8)).save(image, quality=90)
+        n = int(rng.integers(400, 1200))
+        radar = np.zeros((n, 7), np.float32)
+        radar[:, 0] = rng.uniform(3, 50, n)  # x forward
+        radar[:, 1] = rng.uniform(-20, 20, n)  # y left
+        radar[:, 2] = rng.uniform(-1.5, 1.5, n)  # z up
+        radar[:, 3] = rng.normal(0, 10, n)  # RCS
+        radar[:, 4:6] = rng.normal(0, 3, (n, 2))  # v_r, v_r_comp
+        radar[:, 6] = rng.integers(-4, 1, n)  # sweep
+        path = root / f"{i:05d}.bin"
+        radar.tofile(path)
+        k = int(rng.integers(4, 17))
+        cls = rng.integers(0, 4, k)
+        infos.append(dict(
+            image=dict(image_idx=i, image_path=str(image)),
+            calib=dict(P2=VOD_P2, Tr_velo_to_cam=VOD_TR, R0_rect=np.eye(4)),
+            radar_path=str(path),
+            annos=dict(
+                name=names[cls],
+                location=np.stack([rng.uniform(-15, 15, k), np.full(k, 1.5),
+                                   rng.uniform(5, 45, k)], 1).astype(np.float32),
+                dimensions=dims[cls] * rng.uniform(0.9, 1.1, (k, 3)).astype(
+                    np.float32),
+                rotation_y=rng.uniform(-np.pi, np.pi, k).astype(np.float32))))
+    ann = root / "vod_infos.pkl"
+    with open(ann, "wb") as f:
+        pickle.dump(infos, f)
+    return ann
+
+
+def profile_split(tag, fn, card):
+    """`tools.profile_gpu`'s category split of one call of fn()."""
+    from racformer_tpu_torch.tools.profile_gpu import trace_and_summarize
+
+    print(f"{tag} ({card})")
+    trace_and_summarize(lambda i: fn(), n_steps=1, top=6,
+                        printer=lambda line: print(f"[18]   {line}"))
+
+
+def phase_vod(dev, card):
+    """Phase 18: the VoD config unreduced through both drivers on a VoD-layout
+    split, K1-K4 on a VoD step's own inputs, the profiler's split of one
+    eval and one train step, and the VoD smoke. Returns the (K1, K2, K3,
+    K4) launches of the drivers' runs."""
+    import tempfile
+
+    from racformer_tpu_torch.config import Config
+    from racformer_tpu_torch.data.vod import VoDDataset
+    from racformer_tpu_torch.eval import StreamingEvaluator
+    from racformer_tpu_torch.eval.__main__ import main as eval_main
+    from racformer_tpu_torch.eval.streaming import (prepare_frame,
+                                                    radar_maps_are_columns)
+    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
+    from racformer_tpu_torch.tools import vod_smoke
+    from racformer_tpu_torch.train.__main__ import build, to_device
+    from racformer_tpu_torch.train.__main__ import main as train_main
+
+    cfg = Config.fromfile(str(VOD_CONFIG))
+    kwargs = config_kwargs(cfg)
+    layers = int(cfg["decoder"]["num_layers"])
+    accum = int(cfg["accumulate_steps"])
+    batch = int(cfg["batch_size_per_chip"])
+    # counted from the code as for the flagship (phases 4 and 8): neither
+    # count depends on cameras or frames
+    per_sample = SITES * layers
+    want = (0, 2 * SITES * layers * accum, SITES * layers * accum,
+            SITES * layers * accum)
+    print(f"[18] {VOD_CONFIG.relative_to(REPO)}: {kwargs['num_cams']} camera, "
+          f"{kwargs['num_frames']} frame, {kwargs['image_hw']}, "
+          f"Q={kwargs['num_query']}, C={kwargs['embed_dims']}, {layers} "
+          f"layers, {kwargs['num_classes']} classes, batch {batch} in {accum} "
+          f"microbatches; expected launches: K1 {per_sample} per eval sample "
+          f"(offline, one stream) and per 4-stream step, per train step K2 "
+          f"{want[1]}, K3 {want[2]}, K4 {want[3]}")
+    totals = np.zeros(4, np.int64)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ann = write_vod_split(Path(tmp))
+        print(f"[18] wrote {VOD_SAMPLES} VoD-layout frames (1936x1216 JPEG, "
+              f"radar .bin, KITTI infos) in {time.perf_counter() - t0:.2f} s")
+        data = [f"data.train.ann_file={ann}", f"data.val.ann_file={ann}"]
+
+        # the train driver: one epoch of 4 steps, its checkpoint, and an
+        # in-training KITTI eval that saves the best by mAP3D_all
+        wd = Path(tmp) / "wd"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, out = run_driver(train_main, [
+            "--config", str(VOD_CONFIG), "--device", dev.type, "--work-dir",
+            str(wd), "--max-steps",
+            str(VOD_SAMPLES // batch), "--override", *data,
+            "evaluation.interval=1", "evaluation.max_samples=4",
+            "log_interval=1"])
+        secs = time.perf_counter() - t0
+        totals += launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check("training done" in out, "VoD train driver: no 'training done'")
+        for s in res["steps"]:
+            print(f"[18] train driver step {s['step'] + 1}: host ms "
+                  f"{s['host_ms']:.1f} (no sync), loader wait ms "
+                  f"{s['wait_ms']:.2f}")
+        blocks = [b["ms"] for b in res["blocks"]]
+        print(f"[18] synchronized ms per step (log_interval=1, the metrics "
+              f"fetch included): {[round(b, 1) for b in blocks]}; median of "
+              f"steps 2..: {statistics.median(blocks[1:]):.2f} ms; {card}")
+        for sv in res["saves"]:
+            print(f"[18] checkpoint step {sv['step']}: save + verify "
+                  f"{sv['seconds']:.2f} s, {sv['bytes']} B, verified "
+                  f"{sv['verified']}")
+        for ev in res["evals"]:
+            print(f"[18] in-training KITTI eval @ {ev['step']}: "
+                  f"{ev['samples']} samples offline in {ev['seconds']:.2f} s, "
+                  f"K1 launches {ev['k1_launches']}, mAP3D_all "
+                  f"{ev.get('metrics', {}).get('mAP3D_all')}")
+        print(f"[18] train driver: {secs:.2f} s in all, peak device memory "
+              f"{peak} B ({peak / 2**30:.2f} GiB)")
+        check(res["saves"] and all(sv["verified"] for sv in res["saves"]),
+              "VoD train driver: a checkpoint failed verification")
+        check_driver_steps("[18] VoD train driver", res, want)
+        check(len(res["evals"]) == 1 and res["evals"][0]["k1_launches"]
+              == per_sample * res["evals"][0]["samples"] == per_sample * 4,
+              f"VoD in-training eval: {res['evals']}")
+        records = [json.loads(line) for line in
+                   (wd / "metrics.jsonl").read_text().splitlines()]
+        check(all(np.isfinite(r["loss_total"]) for r in records
+                  if "loss_total" in r), "VoD train driver: non-finite loss")
+        best = json.loads((wd / "best" / "metrics.json").read_text())
+        print(f"[18] best/metrics.json: step {best['step']}, mAP3D_all "
+              f"{best['mAP3D_all']}")
+        check(np.isfinite(best["mAP3D_all"]) and (
+            wd / "best" / "checkpoints" / str(best["step"]) / "state.pth")
+            .is_file(), "VoD: no best checkpoint by mAP3D_all")
+        del res
+        torch.cuda.empty_cache()
+
+        # the eval driver on the work dir in the three protocols
+        runs = {}
+        n_steps = {"offline": VOD_SAMPLES, "--streaming": VOD_SAMPLES,
+                   "--streaming --streams 4": -(-VOD_SAMPLES // 4)}
+        for name, extra in (("offline", []), ("--streaming", ["--streaming"]),
+                            ("--streaming --streams 4",
+                             ["--streaming", "--streams", "4"])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            (preds, metrics), text = run_driver(eval_main, [
+                "--config", str(VOD_CONFIG), "--device", dev.type,
+                "--checkpoint", str(wd), *extra, "--override", *data])
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            totals += counts
+            rate = [l for l in text.splitlines() if l.startswith("eval:")]
+            scalars = {k: round(float(v), 4) for k, v in (metrics or {}).items()
+                       if isinstance(v, (int, float))}
+            print(f"[18] eval driver {name}: {rate[0] if rate else 'no eval line'}"
+                  f" ({secs:.2f} s in all, {card}); K1 launches {counts[0]} "
+                  f"(expected {per_sample * n_steps[name]}); mAP3D_all "
+                  f"{scalars.get('mAP3D_all')}, mAP3D_corridor "
+                  f"{scalars.get('mAP3D_corridor')}")
+            check(f"eval: {VOD_SAMPLES} samples" in text and metrics
+                  and np.isfinite(metrics["mAP3D_all"]),
+                  f"VoD eval driver {name}: no eval line or KITTI metrics")
+            check(counts == (per_sample * n_steps[name], 0, 0, 0),
+                  f"VoD eval driver {name}: launches {counts}")
+            check(len(preds) == VOD_SAMPLES and all(
+                np.isfinite(p["scores"]).all() and np.isfinite(p["bboxes"]).all()
+                for p in preds), f"VoD eval driver {name}: predictions")
+            runs[name] = preds
+        ok, worst, compared = True, 0.0, 0
+        for a, b in zip(runs["--streaming --streams 4"], runs["--streaming"]):
+            good, d_score, k, _ = decoded_match(a, b)
+            ok, worst, compared = ok and good, max(worst, d_score), compared + k
+        print(f"[18] 4 streams against one stream, sample by sample: decoded "
+              f"scores max |d| {worst:.4g} (bound {SCORE_TOL}), {compared} "
+              f"boxes matched {'ok' if ok else 'FAIL'}")
+        check(ok, "VoD: 4-stream predictions disagree with single-stream ones")
+
+        # K1 on a VoD eval step's own inputs, and the profiler's split
+        with torch.device(dev):
+            model = RaCFormer(**kwargs)
+        random_init_(model, torch.Generator().manual_seed(SEED)).eval()
+        ds = VoDDataset(str(ann), image_hw=model.image_hw,
+                        max_radar_points=cfg["radar"]["max_points"],
+                        max_gt=model.max_gt)
+        cols = radar_maps_are_columns(ds[0])
+        frames = [prepare_frame(ds[i], 0.5 * i, cols) for i in range(4)]
+        ev = StreamingEvaluator(model)
+        with torch.no_grad():
+            ev.step(frames[0])
+            step_ms = host_ms(lambda: ev.step(frames[1], blocking=False))
+            seen, caught = capture_fold_inputs(
+                lambda: ev.step(frames[2], blocking=False))
+            print(f"[18] eval step (one stream, synchronized): {step_ms:.2f} ms "
+                  f"({card}); in-view share of image sample points per "
+                  f"iteration: {', '.join(f'{v:.3f}' for v in seen)}")
+            check(min(seen) > 0.02, "VoD: image sample points never in view")
+            k1 = step_fold_inputs(caught, "[18]")
+            profile_split("[18] profile of one eval step (tools.profile_gpu)",
+                          lambda: ev.step(frames[3], blocking=False), card)
+        del ev, model, caught
+        torch.cuda.empty_cache()
+
+        # K2-K4 on a VoD train step's own inputs, and the profiler's split
+        tcfg = Config.fromfile(str(VOD_CONFIG)).merge_override(data)
+        model, _, train_step, dataset, batch = build(tcfg, dev, SEED, 1000,
+                                                     synthetic=False)
+        check(isinstance(dataset, VoDDataset), "VoD: the build's dataset")
+        batches = [to_device(dataset.batch([2 * i, 2 * i + 1]), dev)
+                   for i in range(4)]
+        gen = torch.Generator().manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_ms = [host_ms(lambda: train_step(batches[i], gen), runs=1)
+                    for i in range(3)]
+        tpeak = torch.cuda.max_memory_allocated()
+        print(f"[18] train step (batch {batch}, {accum} microbatches, "
+              f"synchronized): {[round(t, 1) for t in train_ms]} ms, peak "
+              f"{tpeak} B ({tpeak / 2**30:.2f} GiB); {card}")
+        k234 = step_own_inputs(train_step, batches[3], gen, tag="[18]")
+        profile_split("[18] profile of one train step (tools.profile_gpu)",
+                      lambda: train_step(batches[0], gen), card)
+        del model, train_step, dataset, batches
+        torch.cuda.empty_cache()
+    for name, shapes in (("K1", k1), ("K2-K4", k234)):
+        print(f"[18] {name} at VoD's sites, ms / bound ms: " + "; ".join(
+            f"{' '.join(map(str, key)) if isinstance(key, tuple) else key} "
+            f"{t:.4f} / {b:.4f}" for key, (t, b) in shapes.items()))
+
+    # the VoD smoke: the original's fixture, tiny widths and schedule
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, records, smoke = vod_smoke.run(tmp, dev.type, SMOKE_EPOCHS)
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        totals += counts
+        steps = smoke["train1"]["steps"]
+        first, last = vod_smoke.fifths(records)
+        bad = vod_smoke.nonfinite_steps(records)
+        norms = [r["grad_norm"] for r in records]
+        print(f"[18] VoD smoke ({len(steps)} steps at batch 8, "
+              f"{secs:.2f} s in all, {card}): loss every 10th step "
+              f"{[round(r['loss_total'], 4) for r in records[::10]]}; mean of "
+              f"the first fifth {first:.4f} -> the last fifth {last:.4f} "
+              f"({len(records) // 5} steps each); mAP3D_all "
+              f"untrained {res['untrained']['mAP3D_all']} -> trained "
+              f"{res['trained']['mAP3D_all']}, mAP3D_corridor "
+              f"{res['untrained']['mAP3D_corridor']} -> "
+              f"{res['trained']['mAP3D_corridor']}; in-training eval "
+              f"{[(r['step'], r.get('mAP3D_all')) for r in res['in_training_eval']]}"
+              f"; grad_norm over {len(norms)} steps: non-finite at {bad}, "
+              f"median {statistics.median(norms):.2f}, max {max(norms):.2f}; "
+              f"launches {counts}")
+        smoke_want = (0, 2 * SITES * layers, SITES * layers, SITES * layers)
+        check_driver_steps("[18] VoD smoke", smoke["train1"], smoke_want)
+        check(len(records) == len(steps) and not bad,
+              f"VoD smoke: {len(records)} of {len(steps)} steps' metrics, "
+              f"non-finite grad_norm at the steps {bad}")
+        check(last < first, f"VoD smoke: the loss did not fall ({first} -> "
+                            f"{last})")
+        smoke_sites = smoke_kernels(Path(tmp) / "data" / "vod_infos.pkl",
+                                    write_vod_split(Path(tmp)), dev, card)
+    print("[18] K1-K4 at the smoke's sites, ms / bound ms: " + "; ".join(
+        f"{' '.join(map(str, key))} {t:.4f} / {b:.4g}"
+        for key, (t, b) in smoke_sites.items()))
+    return tuple(int(n) for n in totals)
+
+
+def smoke_kernels(pkl, vod_ann, dev, card):
+    """K1-K4 at the VoD smoke's widths (embed_dims 64: 16 channels per
+    group, C = 16 for K1 and 2C = 32 for K2-K4, where the full-width sites
+    have 64 and 128) on its fixture's own inputs: one train step of the
+    model that the smoke's train driver builds (batch 8, one microbatch)
+    for K2-K4 at each map shape, then one eval step of that model for K1
+    at each site, each against its plain version, timed, with its bound.
+    The fixture's calibration is the identity, so its eval step's image
+    sample points all fall outside the image (K1's image site is all
+    zero border); one more eval step of the same model on a frame of
+    `vod_ann` (phase 18's split, a radar-to-camera Tr) puts them in view.
+    Returns {site: (ms, bound ms)}."""
+    from racformer_tpu_torch.config import Config
+    from racformer_tpu_torch.data.vod import VoDDataset
+    from racformer_tpu_torch.eval import StreamingEvaluator
+    from racformer_tpu_torch.eval.streaming import (prepare_frame,
+                                                    radar_maps_are_columns)
+    from racformer_tpu_torch.tools import vod_smoke
+    from racformer_tpu_torch.train.__main__ import build, to_device
+
+    cfg = Config.fromfile(str(VOD_CONFIG)).merge_override(
+        vod_smoke.tiny_overrides(str(pkl)))
+    model, _, train_step, dataset, batch = build(cfg, dev, SEED,
+                                                 synthetic=False)
+    print(f"[18] the smoke's model: C={model.embed_dims}, "
+          f"Q={cfg['model']['num_query']}, {model.image_hw}, batch {batch} "
+          f"({card})")
+    sample = to_device(dataset.batch(list(range(batch))), dev)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    sites = step_own_inputs(train_step, sample, gen, tag="[18] smoke")
+    model.eval()
+    for name, ann in (("fixture", pkl), ("split", vod_ann)):
+        ds = VoDDataset(str(ann), image_hw=model.image_hw,
+                        max_radar_points=cfg["radar"]["max_points"],
+                        max_gt=model.max_gt)
+        cols = radar_maps_are_columns(ds[0])
+        frames = [prepare_frame(ds[i], 0.5 * i, cols) for i in range(2)]
+        ev = StreamingEvaluator(model)
+        with torch.no_grad():
+            ev.step(frames[0])
+            seen, caught = capture_fold_inputs(
+                lambda: ev.step(frames[1], blocking=False))
+        print(f"[18] smoke eval step on the {name}'s frame: in-view share of "
+              f"image sample points per iteration: "
+              f"{', '.join(f'{v:.3f}' for v in seen)}")
+        if name == "split":
+            check(min(seen) > 0.02, "the smoke's model on the split's frame: "
+                                    "image sample points never in view")
+        for site, v in step_fold_inputs(caught, f"[18] smoke, {name}").items():
+            sites[f"gather_fold {name}", site] = v
+        del ev, caught
+    del model, train_step, dataset
+    torch.cuda.empty_cache()
+    return sites
+
+
 def flagship_model(dev):
     """The flagship config (read with runpy), the model's arguments and the
     model on `dev` with seeded random weights, in eval mode."""
@@ -2459,6 +2863,7 @@ def main(argv):
                                                 axis=0))
     ddp_k1 = sum(evals[n][0] for n in worlds)
     remat_launches = phase_remat(cfg, dev, card)
+    vod_launches = phase_vod(dev, card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
@@ -2471,16 +2876,18 @@ def main(argv):
           f"{tpeak / 2**30:.2f} GiB; the train driver's step {drv_steady:.2f} "
           f"ms, peak {drv_peak / 2**30:.2f} GiB")
     k1_launches = launches + ms_launches + off_launches + drv_launches + \
-        train_drv[0] + ddp_k1
+        train_drv[0] + ddp_k1 + vod_launches[0]
     print(f"[-] K1 launches on the eval paths: {k1_launches} = streaming "
           f"{launches} + {MS_STREAMS} streams {ms_launches} + offline "
           f"{off_launches} + eval driver {drv_launches} + train driver's evals "
           f"and the eval driver on its work dir {train_drv[0]} + the eval "
-          f"driver under torchrun (phase 16, every rank) {ddp_k1}")
+          f"driver under torchrun (phase 16, every rank) {ddp_k1} + VoD "
+          f"(phase 18) {vod_launches[0]}")
     print(f"[-] K2, K3, K4 launches: train steps (phase 8) {tlaunches[1:]} + "
           f"train driver (phase 14) {train_drv[1:]} + train driver under "
           f"torchrun (phase 15, every rank) {ddp_launches[1:]} + remat "
-          f"policies (phase 17) {remat_launches[1:]}")
+          f"policies (phase 17) {remat_launches[1:]} + VoD (phase 18) "
+          f"{vod_launches[1:]}")
     kernels = [{
         "name": "gather_fold", "route": "cuda",
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
@@ -2493,7 +2900,8 @@ def main(argv):
             ("patch_scatter", "racformer_tpu/ops/scatter_kernel.py:47"),
             ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
             tlaunches[1:], [sum(x) for x in zip(
-                train_drv[1:], ddp_launches[1:], remat_launches[1:])]):
+                train_drv[1:], ddp_launches[1:], remat_launches[1:],
+                vod_launches[1:])]):
         st = patch[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",

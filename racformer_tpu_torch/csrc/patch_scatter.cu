@@ -40,7 +40,8 @@
 //      loaded by the whole block in 16-byte pieces; the next window's loads
 //      fly while a window is added), and adds each run of one row into the
 //      f32 accumulator without atomics: a thread owns one channel pair in
-//      every 16th column (at C = 64), a warp picks the window's points that
+//      every 16th column (at C = 16, 32 and 64; below 64 some lanes of a
+//      warp own none), a warp picks the window's points that
 //      touch its columns with a ballot, sums consecutive points of one
 //      column in registers and adds the sum into its own accumulator
 //      elements.
@@ -66,7 +67,9 @@
 // its row stores, and a hot column keeps one or two warps of a block busy
 // while the others wait at the window's barrier.
 //
-// Contract: every array is contiguous, C is 64, 128, 256 or 512, a map row
+// Contract: every array is contiguous, C is 16, 32, 64, 128, 256 or 512
+// (whole warps of channel-pair owners; 16 and 32 are embed_dims 64 and 128
+// at 4 groups, the VoD smoke's width and the next), a map row
 // plus two staged windows fits in shared memory, R <= 7,264 (8 histograms of
 // R rows per bucketing block), Wp <= 65,536, S * K < 2^31 (the Python wrapper
 // checks these and raises); 0 <= row < R and 0 <= x0p <= Wp - 2 (the
@@ -301,12 +304,14 @@ __device__ __forceinline__ void add_column(float* acc, int x, int c2, int pair,
 // shared memory: their records, row keys, run flags and cotangents, loaded
 // by the whole block (16-byte pieces, two per thread). The next window's
 // cotangents and the records of the window after it are in flight while a
-// window is added. Thread t owns channel pair p = t % (C / 2) (channels
-// 2p, 2p + 1 of both halves) in the columns x with x % classes == t / (C / 2);
-// each warp is one class, finds the points of a run that touch its columns
-// with a ballot and sums the terms of consecutive points of one column in
-// registers before adding them to its accumulator elements: every element
-// has one owner, which adds in bucket order.
+// window is added. Thread t owns channel pair p = t % owners (channels
+// 2p, 2p + 1 of both halves) in the columns x with x % classes == t / owners,
+// owners = max(C / 2, 32), so each warp is one class (below C = 64 the lanes
+// p >= C / 2 own no pair and only take part in the warp's ballots); a warp
+// finds the points of a run that touch its columns with a ballot and sums
+// the terms of consecutive points of one column in registers before adding
+// them to its accumulator elements: every element has one owner, which adds
+// in bucket order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) accumulate_tiles(
     const T* __restrict__ g, const int4* __restrict__ records,
@@ -323,8 +328,10 @@ __global__ void __launch_bounds__(kThreads, 2) accumulate_tiles(
   const T* tgv = reinterpret_cast<const T*>(tg);
   int* tkey = reinterpret_cast<int*>(tg + window * ppp);     // [2][window]
   unsigned* tmask = reinterpret_cast<unsigned*>(tkey + 2 * window);  // [2][4]
-  const int pairs = c / 2, mask = kThreads / pairs - 1;
-  const int cls = threadIdx.x / pairs, pair = threadIdx.x % pairs;
+  const int pairs = c / 2, owners = pairs < 32 ? 32 : pairs;
+  const int mask = kThreads / owners - 1;
+  const int cls = threadIdx.x / owners, pair = threadIdx.x % owners;
+  const bool owner = pair < pairs;
   const int lane = threadIdx.x & 31, tid = threadIdx.x;
 
   const int tile = blockIdx.x;
@@ -412,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 2) accumulate_tiles(
       auto add = [&](int4 r, float2 gp) {  // one point's terms, in order
         const int xs = r.y & 0xffff, dx = (cls - xs) & mask;
         if (xs + dx != cx) {
-          if (cx >= 0) add_column(acc, cx, c2, pair, top, bot);
+          if (cx >= 0 && owner) add_column(acc, cx, c2, pair, top, bot);
           cx = xs + dx;
           top = bot = make_float2(0.f, 0.f);
         }
@@ -433,13 +440,14 @@ __global__ void __launch_bounds__(kThreads, 2) accumulate_tiles(
           const int s2 = todo ? __ffs(todo) - 1 : s1;
           todo &= todo - 1;
           const int4 r1 = tcur[t0 + s1], r2 = tcur[t0 + s2];
-          const float2 g1 = load2(tgv + (t0 + s1) * c + 2 * pair);
-          const float2 g2 = load2(tgv + (t0 + s2) * c + 2 * pair);
+          const float2 zero = make_float2(0.f, 0.f);
+          const float2 g1 = owner ? load2(tgv + (t0 + s1) * c + 2 * pair) : zero;
+          const float2 g2 = owner ? load2(tgv + (t0 + s2) * c + 2 * pair) : zero;
           add(r1, g1);
           if (s2 != s1) add(r2, g2);
         }
       }
-      if (cx >= 0) add_column(acc, cx, c2, pair, top, bot);
+      if (cx >= 0 && owner) add_column(acc, cx, c2, pair, top, bot);
       a = b;
     }
     __syncthreads();  // the window is consumed

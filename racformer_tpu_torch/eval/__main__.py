@@ -11,7 +11,9 @@ single-stream streaming latency protocol (`--streaming`: one frame per step
 through the feature cache, reset at scene boundaries) and the multi-stream
 throughput protocol (`--streaming --streams N`: N scene streams in
 lockstep). The dataset is VoD, synthetic or nuScenes, chosen as `val.py`
-chooses. Prints `eval: N samples, X samples/s` and the metrics as JSON.
+chooses. Prints `eval: N samples, X samples/s` and the metrics as JSON;
+`--plot-dir DIR` also writes the nuScenes PR / TP curves and the per-class
+table there (`tools/eval_plots.render_all`, matplotlib; none for VoD).
 
 Under `torchrun` (`torchrun --nproc_per_node=N -m racformer_tpu_torch.eval
 ...`; NCCL on CUDA, one card per process, gloo with `--device cpu`) the
@@ -64,7 +66,8 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=1,
                    help="samples per offline forward")
     p.add_argument("--plot-dir", default=None,
-                   help="not ported yet (tools/eval_plots.py)")
+                   help="write the nuScenes PR / TP curves and the per-class "
+                        "table here (tools/eval_plots.py; not for VoD)")
     p.add_argument("--dump-eval", default=None,
                    help="pickle (preds, gts) here for offline re-analysis")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -133,9 +136,6 @@ def main(argv=None):
     """Runs the evaluation; returns (preds, metrics) for callers in
     process (metrics is None without ground truth)."""
     args = parse_args(argv)
-    if args.plot_dir:
-        raise SystemExit("--plot-dir is not ported yet: tools/eval_plots.py "
-                         "is queued in ROADMAP.md §1")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("the eval driver needs a CUDA device (pass --device "
                          "cpu to run the plain versions on the CPU)")
@@ -201,8 +201,16 @@ def _evaluate(args, device):
         metrics = detection_metrics(
             preds, gts, is_vod=is_vod,
             class_names=list(cfg.get("class_names", [])) or None,
-            front_only=bool(cfg.get("eval_front_only", False)))
+            front_only=bool(cfg.get("eval_front_only", False)),
+            return_curves=bool(args.plot_dir))
         if rank == 0:
+            if args.plot_dir and not is_vod:
+                # the metrics call indexes labels into the protocol's
+                # CLASS_NAMES, so the plots do too
+                from ..tools.eval_plots import render_all
+
+                render_all(metrics, args.plot_dir)
+                print(f"eval plots -> {args.plot_dir}")
             if args.dump_eval:
                 with open(args.dump_eval, "wb") as f:
                     pickle.dump((preds, gts), f)

@@ -135,8 +135,9 @@ def patch_scatter(g, row, x0p, wx, wy, map_shape):
                          (g.dtype, i32, i32, f32, f32))
     _check_rows("patch_scatter", row, R)
     C = C2 // 2
-    if C not in (64, 128, 256, 512):  # whole warps of channel-pair owners
-        raise ValueError(f"patch_scatter: C={C} is not 64, 128, 256 or 512")
+    if C not in (16, 32, 64, 128, 256, 512):  # whole warps of pair owners
+        raise ValueError(f"patch_scatter: C={C} is not 16, 32, 64, 128, 256 "
+                         f"or 512")
     if Wp * C2 * 4 + 22 * 1024 > _MAX_SHARED:  # the row and the staged windows
         raise ValueError(f"patch_scatter: a map row of {Wp} x {C2} f32 does "
                          f"not fit in a block's shared memory")

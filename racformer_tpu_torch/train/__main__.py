@@ -17,16 +17,19 @@ a cosine schedule over `steps_per_epoch * total_epochs` steps (or
 `--max-steps`).
 
 The metrics stay on the device and are fetched in one block every
-`log_interval` steps into `MetricLogger` (`<work_dir>/metrics.jsonl`).
+`log_interval` steps into `MetricLogger` (`<work_dir>/metrics.jsonl`, every
+50th step, as `train.py`'s) and into the returned summary's `metrics`
+(every step).
 A verified checkpoint is written at every epoch end and at the last step
 (`train.checkpoint`, the EMA inside with `--ema`); `--resume` continues from
 the newest. Every `evaluation.interval` epochs the current weights (not the
 EMA) are evaluated on the val split (`evaluation.mode` offline or
 streaming, capped at `evaluation.max_samples`), the metrics logged as
 `phase: "val"`, and a new best of `evaluation.save_best` saved under
-`<work_dir>/best`. The random draws come from a generator seeded with
-seed + 17 at every start, a resumed run's too, as `train.py` restarts its
-key.
+`<work_dir>/best` (`best_metric`: on VoD mAP3D_all, where `train.py`
+keeps the inherited NDS). The random draws come from a generator seeded
+with seed + 17 at every start, a resumed run's too, as `train.py`
+restarts its key.
 
 `--distributed`, under `torchrun` (`utils.distributed`: NCCL on CUDA, one
 card per process, gloo with `--device cpu`): the global batch is
@@ -240,6 +243,18 @@ def launch_counts():
     return (gk.LAUNCHES, gk.GATHER_LAUNCHES, sk.LAUNCHES, gk.CORNER_LAUNCHES)
 
 
+def best_metric(cfg) -> str:
+    """The metric that picks `best/`: `evaluation.save_best`, else NDS, or
+    mAP3D_all on VoD. A VoD config naming NDS gets mAP3D_all: the VoD
+    config inherits `save_best="NDS"` from the nuScenes base it extends,
+    and the KITTI metrics have no NDS (`train.py` keeps the name and never
+    saves a best checkpoint on VoD)."""
+    is_vod = cfg.get("dataset_type") == "vod"
+    key = dict(cfg.get("evaluation") or {}).get(
+        "save_best", "mAP3D_all" if is_vod else "NDS")
+    return "mAP3D_all" if is_vod and key == "NDS" else key
+
+
 def main(argv=None):
     """Runs the training; returns a summary for callers in process: the
     work dir, the world and global batch, the first and last step, the
@@ -330,13 +345,14 @@ def _train(args, device):
               "multi-process run falls back to offline")
         eval_mode = "offline"
     is_vod = cfg.get("dataset_type") == "vod"
-    best_key = ev_cfg.get("save_best", "mAP3D_all" if is_vod else "NDS")
+    best_key = best_metric(cfg)
     ev = {"dataset": None, "best": float("-inf"), "last_step": -1,
           "best_mgr": None}
     result = {"work_dir": work_dir, "world": world,
               "global_batch": global_batch, "start_step": start_step,
               "restored_digest": ckpt.restored_digest,
-              "steps": [], "blocks": [], "saves": [], "evals": [],
+              "steps": [], "metrics": [], "blocks": [], "saves": [],
+              "evals": [],
               "model": model, "eval_preds": None}
 
     def run_eval(step):
@@ -414,8 +430,9 @@ def _train(args, device):
         values = torch.stack([torch.stack([m[k].float() for k in keys])
                               for _, m, _ in pending]).cpu().numpy()
         for (s, m, gt), row in zip(pending, values):
-            logger.log_step(s, dict(zip(keys, row.tolist())),
-                            lr=optimizer.lr(step=s))
+            scalars = dict(zip(keys, row.tolist()))
+            logger.log_step(s, scalars, lr=optimizer.lr(step=s))
+            result["metrics"].append({"step": s, **scalars})
             if match_hook is not None:
                 match_hook.record(
                     s, {k: v for k, v in m.items() if k.startswith("_")},

@@ -141,12 +141,14 @@ def _points(dev, dtype, S=3, R=40, Wp=36, C=64, K=4096, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C,K", [(64, 4000), (128, 777), (64, 30000)])
+@pytest.mark.parametrize("C,K", [(64, 4000), (128, 777), (64, 30000),
+                                 (16, 3000), (32, 2000)])
 def test_patch_kernels_match_plain(cuda, dtype, C, K):
     """K2, K3 and K4 against their plain versions. f32: the same f32
     arithmetic up to the order of the sums (K3 sums each column's terms in
     bucket order); bf16: one output rounding in K2 and K3, reordered f32
-    sums in K3 / K4."""
+    sums in K3 / K4. C = 16 and 32 (embed_dims 64 and 128 at 4 groups) leave
+    lanes of K3's warps without a channel pair."""
     from racformer_tpu_torch.ops import scatter_kernel
 
     fused, row, x0p, wx, wy, g = _points(cuda, dtype, C=C, K=K)

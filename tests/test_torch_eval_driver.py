@@ -119,10 +119,41 @@ def test_numpy_variables_pickle_loads(tmp_path):
         assert torch.equal(fresh.state_dict()[k], v), k
 
 
+def test_plot_dir_writes_the_val_py_plot_set(tmp_path):
+    """--plot-dir renders the nuScenes curves and table, as `val.py
+    --plot-dir` does: the same file set and the same `.tex` table, byte
+    for byte, as the JAX package's metrics and `render_all` give on the
+    predictions the driver dumped."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from racformer_tpu.eval.offline import detection_metrics
+    from racformer_tpu.tools.eval_plots import render_all
+
+    plots, dump = tmp_path / "plots", tmp_path / "dump.pkl"
+    preds, metrics = driver.main([
+        "--config", str(REPO / CONFIG), "--device", "cpu", "--synthetic",
+        "--max-samples", "3", "--plot-dir", str(plots), "--dump-eval",
+        str(dump), "--override", *TINY])
+    assert len(preds) == 3 and "curves" in metrics
+    with open(dump, "rb") as f:
+        preds, gts = pickle.load(f)
+    cfg = Config.fromfile(str(REPO / CONFIG))
+    want = detection_metrics(preds, gts, class_names=list(cfg["class_names"]),
+                             return_curves=True)
+    render_all(want, str(tmp_path / "val_py"))
+    files = sorted(os.listdir(plots))
+    assert files == sorted(os.listdir(tmp_path / "val_py"))
+    assert {"summary.png", "metrics_table.tex", "dist_pr_2.0.png"} <= set(files)
+    assert any(f.endswith("_pr.png") for f in files)
+    assert ((plots / "metrics_table.tex").read_bytes()
+            == (tmp_path / "val_py" / "metrics_table.tex").read_bytes())
+
+
 def test_refusals(tmp_path, monkeypatch):
     """A pickle of JAX arrays or an orbax work_dir is refused with a pointer
-    to the converter script (reading them needs JAX); --plot-dir is
-    refused; the default device needs CUDA."""
+    to the converter script (reading them needs JAX); the default device
+    needs CUDA."""
     path = tmp_path / "jax.pkl"
     with open(path, "wb") as f:
         pickle.dump({"params": {"w": jnp.ones(3)}}, f)
@@ -131,8 +162,6 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="scripts/jax_checkpoint_to_torch.py"):
         driver.load_checkpoint(tiny_model(), str(tmp_path), "v1.0.0")
     base = ["--config", CONFIG, "--synthetic"]
-    with pytest.raises(SystemExit, match="plot-dir"):
-        driver.main(base + ["--device", "cpu", "--plot-dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         driver.main(base)

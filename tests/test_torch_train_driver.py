@@ -276,6 +276,21 @@ def test_run_writes_checkpoints_evals_and_match_stats(runs):
     assert [e["samples"] for e in a["evals"] + b["evals"]] == [2, 2]
 
 
+def test_summary_keeps_every_step_metrics(runs):
+    """The driver's summary holds each step's scalar metrics, where the log
+    (every 50th step, as train.py's) holds step 0 alone."""
+    wd, out, _ = runs
+    for run, steps in (("a", [0, 1]), ("b", [2, 3])):
+        got = out[run]["metrics"]
+        assert [m["step"] for m in got] == steps
+        assert all(np.isfinite(m["loss_total"]) and np.isfinite(m["grad_norm"])
+                   for m in got)
+    logged = [json.loads(line)["step"] for line in
+              (wd / "metrics.jsonl").read_text().splitlines()
+              if "loss_total" in line and '"phase"' not in line]
+    assert logged == [0]
+
+
 def test_resume_restores_the_saved_state_bitwise(runs):
     _, out, _ = runs
     assert "resumed from step 2" in out["b_stdout"]

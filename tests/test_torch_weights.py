@@ -7,8 +7,9 @@ port.
   port -> JAX converter: a round trip returns every tensor bit for bit.
 * Importing any module of the port (the train and eval drivers, the data
   layer and the config loader included) loads neither jax, flax, the JAX
-  package `racformer_tpu` nor Pillow; its sources and `chip_smoke.py` import
-  none of them (Pillow only inside the functions that decode images) and
+  package `racformer_tpu`, Pillow nor matplotlib; its sources and
+  `chip_smoke.py` import none of them (Pillow only inside the functions
+  that decode or write images, matplotlib inside those that draw) and
   use no fused-attention operator, `torch.compile` or kernel library.
 """
 
@@ -70,9 +71,10 @@ def test_weight_round_trip_is_exact():
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port, the drivers and the data layer included,
-    imports without loading JAX, the JAX package or Pillow (the data
-    modules import Pillow only where they decode an image)."""
+    """Every module of the port, the drivers, the data layer and the tools
+    included, imports without loading JAX, the JAX package, Pillow or
+    matplotlib (the data modules import Pillow only where they decode an
+    image, the tools matplotlib only where they draw)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "racformer_tpu_torch").rglob("*.py"))
@@ -90,13 +92,18 @@ def test_import_leaves_jax_out():
                  "racformer_tpu_torch.utils.logging",
                  "racformer_tpu_torch.tools.convert_weights",
                  "racformer_tpu_torch.tools.export_results",
-                 "racformer_tpu_torch.tools.gen_sweep_info"):
+                 "racformer_tpu_torch.tools.gen_sweep_info",
+                 "racformer_tpu_torch.tools.eval_plots",
+                 "racformer_tpu_torch.tools.visualize",
+                 "racformer_tpu_torch.tools.profile_gpu",
+                 "racformer_tpu_torch.tools.vod_smoke"):
         assert name in modules
     code = ("import importlib, sys\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name.removesuffix('.__init__'))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'flax', 'orbax', 'racformer_tpu', 'PIL')]\n"
+            "       ('jax', 'flax', 'orbax', 'racformer_tpu', 'PIL',\n"
+            "        'matplotlib')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -119,3 +126,5 @@ def test_port_sources_use_no_forbidden_code():
         assert not jax_package.search(text), f"{path.name} imports racformer_tpu"
         assert not re.search(r"^(from|import) PIL", text, re.M), (
             f"{path.name} imports Pillow at module level")
+        assert not re.search(r"^(from|import) matplotlib", text, re.M), (
+            f"{path.name} imports matplotlib at module level")
