@@ -153,8 +153,29 @@ Phases, each printed as it runs; any failure exits non-zero:
      Prints each step's ms, the loader's wait, the checkpoint's bytes, each
      protocol's samples/s and the peak memory beside the card's name and
      power limit.
+ 19. (run last) the model's `head_dtype` and `fused_gather` fields, read
+     from the flagship config through `config_kwargs`, on phase 4's seeded
+     weights and frames: (a) 5 streaming steps with the f32 head and 5
+     with `head_dtype=bfloat16` (K1 18 a step), each step's ms, device
+     busy and GEMM / convolution device ms (`tools.profile_gpu`'s
+     categories) of one more step, and the peak memory; the bf16 head's
+     outputs float32 and finite and, on one window, within the JAX
+     package's drift alarm of the f32 head's (median |d box| < 0.5); (b)
+     2 train steps with the f32 head, then 2 with the bf16 head, through
+     the train driver's `build` (K2 72, K3 and K4 36 a step): losses,
+     grad_norm and gradients finite, every parameter still float32, each
+     step's ms and the peak, then K2-K4 on one bf16-head step's own inputs
+     against their plain versions;
+     (c) 5 streaming steps with `fused_gather=False` (no K1, K2 18 a
+     step) and its head outputs on one window within phase 5's bound of
+     the folded step's; (d) VoVNet V-99-eSE on the flagship's per-frame
+     trunk input (6 x 256 x 704) in f32 and bf16 (the four output shapes,
+     the bf16 relative error per stage, ms, device busy, GEMM / conv ms
+     and peak) and BEVResNet +
+     FPNLSS on a 128^2 BEV of 256 channels (shapes, ms).
 The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
-13, 14, 16 and 18, the K2-K4 entries theirs on phases 8, 14, 15, 17 and 18,
+13, 14, 16, 18 and 19, the K2-K4 entries theirs on phases 8, 14, 15, 17,
+18 and 19,
 each counted from 0 just before the phase's run (phases 15 and 16 count in
 their processes and report back, summed over the ranks).
 No module of JAX or of the JAX package may have been imported by the end.
@@ -2806,6 +2827,250 @@ def smoke_kernels(pkl, vod_ann, dev, card):
     return sites
 
 
+HEAD_STEPS = 5  # phase 19's streaming steps per head
+VOV_INPUT = (6, 256, 704, 3)  # the flagship's per-frame trunk input
+
+
+def seeded_he_init_(module, generator):
+    """He-normal convolution and linear weights, drawn from `generator`, so
+    that a deep random net's activations keep their scale."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               .to(m.weight.device) * (2.0 / fan_in) ** 0.5)
+    return module
+
+
+def device_split(fn, runs):
+    """(device busy ms per run, GEMM / convolution device ms per run) of
+    fn() under the profiler, by `tools.profile_gpu.categorize`."""
+    from racformer_tpu_torch.tools.profile_gpu import categorize, kernel_times
+
+    events, busy = profiled(fn, runs)
+    by_op, _ = kernel_times(events, runs)
+    return busy, categorize(by_op).get("matmul/conv", 0.0)
+
+
+def head_steps(model, frames, tag):
+    """HEAD_STEPS streaming steps of `model` on `frames`: (evaluator, steady
+    ms, the steps' peak bytes above what was allocated before them (the
+    phase's other models and windows stay allocated), the launches, device
+    busy and GEMM / conv ms of one more step)."""
+    from racformer_tpu_torch.eval import StreamingEvaluator
+
+    ev = StreamingEvaluator(model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms = []
+    for f in frames[:HEAD_STEPS]:
+        t0 = time.perf_counter()
+        out = ev.step(f, blocking=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(out["scores"]).all())
+              and bool(torch.isfinite(out["bboxes"]).all()),
+              f"{tag}: non-finite scores or boxes")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    cache = ev.cache
+    busy, gemm = device_split(lambda: ev.step(frames[HEAD_STEPS],
+                                              blocking=False), 1)
+    ev.cache = cache  # the window of the timed steps, for the comparisons
+    return ev, statistics.median(step_ms[1:]), peak, launches, busy, gemm
+
+
+def phase_head_dtype(cfg, dev, card):
+    """Phase 19: the bf16 decoder / head (`model.head_dtype=bfloat16`) on
+    the flagship's streaming eval step and train step, the eval step
+    through the unfolded samplers (`model.fused_gather=False`), and VoVNet
+    V-99-eSE and the BEV nets. Returns the (K1, K2, K3, K4) launches of its
+    runs (not of its comparisons)."""
+    import copy
+
+    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
+    from racformer_tpu_torch.train.__main__ import build, to_device
+
+    def variant(**fields):
+        c = copy.deepcopy(cfg)
+        c["model"].update(fields)
+        return c
+
+    def model_of(c):
+        with torch.device(dev):
+            m = RaCFormer(**config_kwargs(c))
+        return random_init_(m, torch.Generator().manual_seed(SEED)).eval()
+
+    total = np.zeros(4, dtype=np.int64)
+    layers = int(cfg["decoder"]["num_layers"])
+    m32 = model_of(cfg)
+    m16 = model_of(variant(head_dtype="bfloat16"))
+    frames = ring_frames(m32, HEAD_STEPS + 1, 1536, SEED)
+    # (a) the streaming eval step with each head, on phase 4's weights and
+    # frames; the bf16 head's outputs against the f32 head's on one window
+    ev32, ms32, peak32, l32, busy32, gemm32 = head_steps(m32, frames, "[19] f32")
+    ev16, ms16, peak16, l16, busy16, gemm16 = head_steps(m16, frames, "[19] bf16")
+    total += np.asarray(l32) + np.asarray(l16)
+    check(tuple(l16) == (18 * HEAD_STEPS, 0, 0, 0),
+          f"[19] bf16 head: launches {l16} in {HEAD_STEPS} steps, expected K1 "
+          f"{18 * HEAD_STEPS} and no other")
+    feat_cat, lss, radar, l2i, ts = ev32.cache
+    args = (feat_cat, lss, radar, l2i, ts[:, :1] - ts)
+    a, b = m32.decode_window(*args), m16.decode_window(*args)
+    check(all(b[k].dtype == torch.float32 for k in ("all_cls_scores",
+                                                    "all_bbox_preds")),
+          "[19] the bf16 head's outputs are not float32")
+    d_cls = (b["all_cls_scores"][-1] - a["all_cls_scores"][-1]).abs()
+    d_box = (b["all_bbox_preds"][-1] - a["all_bbox_preds"][-1]).abs()
+    print(f"[19] (a) streaming step, {HEAD_STEPS} steps each on phase 4's "
+          f"weights and frames ({card}): f32 head {ms32:.2f} ms (device busy "
+          f"{busy32:.2f} ms, GEMM / conv {gemm32:.2f} ms, steps' peak {peak32} "
+          f"B = {peak32 / 2**30:.2f} GiB); bf16 head {ms16:.2f} ms (device busy "
+          f"{busy16:.2f} ms, GEMM / conv {gemm16:.2f} ms, steps' peak {peak16} "
+          f"B = {peak16 / 2**30:.2f} GiB; a steps' peak counts from the memory "
+          f"allocated before them: the weights and the phase's other models "
+          f"and windows); K1 launches per step {l16[0] // HEAD_STEPS}")
+    print(f"[19] (a) bf16 head against the f32 head on one window (last "
+          f"layer): class logits max |d| {d_cls.max().item():.4g}, median "
+          f"{d_cls.median().item():.4g}; boxes max |d| {d_box.max().item():.4g}, "
+          f"median {d_box.median().item():.4g} (bound: median |d box| < 0.5, "
+          f"the JAX package's drift alarm); outputs float32, parameters "
+          f"{sorted({str(p.dtype) for p in m16.parameters()})}")
+    check(bool(torch.isfinite(d_cls).all() and torch.isfinite(d_box).all())
+          and d_box.median().item() < 0.5,
+          "[19] the bf16 head drifts from the f32 head")
+    # (c) the unfolded samplers: K2's forward at every site, no K1
+    mu = model_of(variant(fused_gather=False))
+    evu, msu, peaku, lu, busyu, gemmu = head_steps(mu, frames, "[19] unfolded")
+    total += np.asarray(lu)
+    want = (0, SITES * layers * HEAD_STEPS, 0, 0)
+    check(tuple(lu) == want, f"[19] fused_gather=False: launches {lu}, "
+                             f"expected {want}")
+    reset_launch_counts()
+    c = mu.decode_window(*args)
+    total += np.asarray(launch_counts())
+    tol_cls, tol_box = head_bound(a["all_cls_scores"][-1], a["all_bbox_preds"][-1])
+    e_cls = (c["all_cls_scores"][-1] - a["all_cls_scores"][-1]).abs().max().item()
+    e_box = (c["all_bbox_preds"][-1] - a["all_bbox_preds"][-1]).abs().max().item()
+    print(f"[19] (c) fused_gather=False: {msu:.2f} ms a step (device busy "
+          f"{busyu:.2f} ms, steps' peak {peaku / 2**30:.2f} GiB), launches per step K1 {lu[0] // HEAD_STEPS}, K2 "
+          f"{lu[1] // HEAD_STEPS} (expected {SITES} sites x {layers} "
+          f"iterations); "
+          f"against the folded step on one window: class logits max |d| "
+          f"{e_cls:.4g} (bound {tol_cls:.4g}), boxes max |d| {e_box:.4g} "
+          f"(bound {tol_box:.4g}, phase 5's)")
+    check(e_cls <= tol_cls and e_box <= tol_box,
+          "[19] the unfolded samplers disagree with the folded step")
+    del ev32, ev16, evu, m32, m16, mu, a, b, c, args, feat_cat, lss, radar
+    torch.cuda.empty_cache()
+
+    # (b) train steps through the train driver's build: the f32 head's,
+    # then the bf16 head's, each from the seeded weights on the same batches
+    accum = int(cfg.get("accumulate_steps", 1))
+    per = SITES * layers * accum
+    want = (0, 2 * 2 * per, 2 * per, 2 * per)
+    for name, tcfg in (("f32", cfg), ("bf16", variant(head_dtype="bfloat16"))):
+        model, opt, train_step, dataset, batch = build(tcfg, dev, SEED, 1000)
+        batches = [to_device(dataset.batch(list(range(i * batch,
+                                                       (i + 1) * batch))), dev)
+                   for i in range(3)]
+        gen = torch.Generator().manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            metrics = train_step(batches[i], gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses = {k: float(v) for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in losses.values()),
+                  f"[19] {name} head: non-finite losses or grad_norm {losses}")
+            check(finite_grads(model), f"[19] {name} head: non-finite gradients")
+        lt = launch_counts()
+        total += np.asarray(lt)
+        peak = torch.cuda.max_memory_allocated()
+        check(tuple(lt) == want, f"[19] {name}-head train launches {lt} in 2 "
+                                 f"steps, expected {want}")
+        dtypes = sorted({str(p.dtype) for p in model.parameters()})
+        check(dtypes == ["torch.float32"], f"[19] parameters became {dtypes}")
+        print(f"[19] (b) {name}-head train step (batch {batch}, {accum} "
+              f"microbatches, {card}): first {step_ms[0]:.2f} ms, second "
+              f"{step_ms[1]:.2f} ms, peak {peak} B = {peak / 2**30:.2f} GiB; "
+              f"launches per step K2 {lt[1] // 2}, K3 {lt[2] // 2}, K4 "
+              f"{lt[3] // 2}; losses and grad_norm finite (grad_norm "
+              f"{losses['grad_norm']:.5g}, loss_total "
+              f"{losses['loss_total']:.5g}); parameters {dtypes}")
+        if name == "bf16":
+            step_own_inputs(train_step, batches[2], gen, tag="[19] (b)")
+        del model, opt, train_step, dataset, batches
+        torch.cuda.empty_cache()
+
+    # (d) VoVNet V-99-eSE at the flagship's per-frame trunk input, and the
+    # BEV nets on a 128^2 BEV of 256 channels
+    from racformer_tpu_torch.nn.bev_nets import BEVResNet, FPNLSS
+    from racformer_tpu_torch.nn.vovnet import VoVNet
+
+    x = torch.randn(VOV_INPUT, generator=torch.Generator().manual_seed(SEED))
+    x = x.to(dev)
+    outs, times = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        with torch.device(dev):
+            net = VoVNet("V-99-eSE", dtype=dt)
+        seeded_he_init_(net, torch.Generator().manual_seed(SEED)).eval()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            outs[dt] = net(x)
+            times[dt] = (median_ms(lambda: net(x), reps=5, warmup=1),
+                         torch.cuda.max_memory_allocated(),
+                         *device_split(lambda: net(x), 1))
+        del net
+    shapes = [tuple(o.shape) for o in outs[torch.float32]]
+    H, W = VOV_INPUT[1:3]
+    want = [(VOV_INPUT[0], H // s, W // s, c) for s, c in
+            zip((4, 8, 16, 32), (256, 512, 768, 1024))]
+    rel = [((o16.float() - o32).norm() / o32.norm()).item()
+           for o16, o32 in zip(outs[torch.bfloat16], outs[torch.float32])]
+    check(shapes == want and [tuple(o.shape) for o in outs[torch.bfloat16]]
+          == want, f"[19] VoVNet shapes {shapes}, expected {want}")
+    check(all(torch.isfinite(o).all() and o.abs().max() > 0
+              for o in outs[torch.float32]) and max(rel) < 0.1,
+          f"[19] VoVNet outputs degenerate or bf16 off f32 by {rel}")
+    print(f"[19] (d) VoVNet V-99-eSE on {VOV_INPUT} (eval, frozen BN, He-normal "
+          f"seeded weights): outputs {shapes}; " + "; ".join(
+              f"{name} {t[0]:.3f} ms (device busy {t[2]:.3f} ms, GEMM / conv "
+              f"{t[3]:.3f} ms), peak {t[1]} B" for name, t in (
+                  ("f32", times[torch.float32]), ("bf16", times[torch.bfloat16])))
+          + f"; bf16 against f32, relative error (norm of the difference over "
+          f"the norm) per stage {', '.join(f'{r:.4g}' for r in rel)}")
+    del outs, x
+    with torch.device(dev):
+        bev_net, neck = BEVResNet(256), FPNLSS(512 + 2048, 256)
+    g = torch.Generator().manual_seed(SEED)
+    seeded_he_init_(bev_net, g).eval()
+    seeded_he_init_(neck, g).eval()
+    bev = torch.randn((1, 128, 128, 256), generator=g).to(dev)
+    with torch.no_grad():
+        feats = bev_net(bev)
+        out = neck(feats)
+        ms = median_ms(lambda: neck(bev_net(bev)), reps=5, warmup=1)
+    check([tuple(f.shape) for f in feats] == [(1, 64, 64, 512), (1, 32, 32, 1024),
+                                               (1, 16, 16, 2048)]
+          and tuple(out.shape) == (1, 128, 128, 256)
+          and bool(torch.isfinite(out).all()), "[19] BEV nets: bad output")
+    print(f"[19] (d) BEVResNet + FPNLSS on (1, 128, 128, 256) f32: stages "
+          f"{[tuple(f.shape) for f in feats]}, out {tuple(out.shape)}, "
+          f"{ms:.3f} ms")
+    print(f"[19] launches of phase 19's runs: K1 {total[0]}, K2 {total[1]}, "
+          f"K3 {total[2]}, K4 {total[3]}")
+    return tuple(int(n) for n in total)
+
+
 def flagship_model(dev):
     """The flagship config (read with runpy), the model's arguments and the
     model on `dev` with seeded random weights, in eval mode."""
@@ -2864,6 +3129,7 @@ def main(argv):
     ddp_k1 = sum(evals[n][0] for n in worlds)
     remat_launches = phase_remat(cfg, dev, card)
     vod_launches = phase_vod(dev, card)
+    head_launches = phase_head_dtype(cfg, dev, card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
@@ -2876,18 +3142,20 @@ def main(argv):
           f"{tpeak / 2**30:.2f} GiB; the train driver's step {drv_steady:.2f} "
           f"ms, peak {drv_peak / 2**30:.2f} GiB")
     k1_launches = launches + ms_launches + off_launches + drv_launches + \
-        train_drv[0] + ddp_k1 + vod_launches[0]
+        train_drv[0] + ddp_k1 + vod_launches[0] + head_launches[0]
     print(f"[-] K1 launches on the eval paths: {k1_launches} = streaming "
           f"{launches} + {MS_STREAMS} streams {ms_launches} + offline "
           f"{off_launches} + eval driver {drv_launches} + train driver's evals "
           f"and the eval driver on its work dir {train_drv[0]} + the eval "
           f"driver under torchrun (phase 16, every rank) {ddp_k1} + VoD "
-          f"(phase 18) {vod_launches[0]}")
+          f"(phase 18) {vod_launches[0]} + head dtypes (phase 19) "
+          f"{head_launches[0]}")
     print(f"[-] K2, K3, K4 launches: train steps (phase 8) {tlaunches[1:]} + "
           f"train driver (phase 14) {train_drv[1:]} + train driver under "
           f"torchrun (phase 15, every rank) {ddp_launches[1:]} + remat "
           f"policies (phase 17) {remat_launches[1:]} + VoD (phase 18) "
-          f"{vod_launches[1:]}")
+          f"{vod_launches[1:]} + bf16 head and unfolded samplers (phase 19) "
+          f"{head_launches[1:]}")
     kernels = [{
         "name": "gather_fold", "route": "cuda",
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
@@ -2901,7 +3169,7 @@ def main(argv):
             ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
             tlaunches[1:], [sum(x) for x in zip(
                 train_drv[1:], ddp_launches[1:], remat_launches[1:],
-                vod_launches[1:])]):
+                vod_launches[1:], head_launches[1:])]):
         st = patch[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",

@@ -14,7 +14,8 @@ query denoising from the ground truth.
 Dtypes follow the JAX package: the image trunk computes in `trunk_dtype`
 (bf16) from f32 parameters, the image pyramid and BEV value maps the decoder
 gathers from are stored in bf16 (`trunk_dtype` / `gather_dtype`), the radar
-branch and the head run in f32.
+branch runs in f32 and the head in `head_dtype` (f32 by default; with bf16
+its coordinate and box math stays f32 and its outputs are f32).
 """
 
 from __future__ import annotations
@@ -59,15 +60,22 @@ class RaCFormer(nn.Module):
                  depth_bins: int = 96, bev_size=(128, 128),
                  num_decoder_layers: int = 6,
                  trunk_dtype: torch.dtype = torch.bfloat16,
+                 head_dtype: torch.dtype = torch.float32,
                  query_denoising: bool = True, max_gt: int = 64,
-                 bn_frame0_only: bool = False):
+                 bn_frame0_only: bool = False,
+                 fused_gather: Optional[bool] = None):
         """Arguments as the JAX `RaCFormer`'s fields. `decoder` is the
         config file's decoder block (num_layers, d_region_list, num_points,
         ...), merged over the defaults; its `gather_dtype` sets the BEV value
-        maps' storage dtype. `bn_frame0_only` (train mode only): the BEV
-        branches run frame 0 in train mode and the history frames in eval
-        mode without gradients, the reference's exact BatchNorm semantics;
-        off, they run every frame of the window in train mode."""
+        maps' storage dtype. `head_dtype`: the decoder's and head's compute
+        dtype (parameters stay f32). `bn_frame0_only` (train mode only): the
+        BEV branches run frame 0 in train mode and the history frames in
+        eval mode without gradients, the reference's exact BatchNorm
+        semantics; off, they run every frame of the window in train mode.
+        `fused_gather`: None or True samples the decoder's three sites with
+        the fold gather (K1) in eval mode, False with the per-point sampler
+        (K2's forward), as the JAX package's unfused path; train mode always
+        samples every point."""
         super().__init__()
         self.num_cams, self.num_frames = num_cams, num_frames
         self.bn_frame0_only = bn_frame0_only
@@ -75,7 +83,7 @@ class RaCFormer(nn.Module):
         self.image_hw = tuple(image_hw)
         self.bev_size = tuple(bev_size)
         self.depth_bins = depth_bins
-        self.trunk_dtype = trunk_dtype
+        self.trunk_dtype, self.head_dtype = trunk_dtype, head_dtype
         C = embed_dims
         self.img_backbone = ResNet50(dtype=trunk_dtype)
         self.img_neck = FPN((256, 512, 1024, 2048), C)
@@ -98,10 +106,11 @@ class RaCFormer(nn.Module):
                            bev_spatial_shape=tuple(bev_size),
                            image_hw=tuple(image_hw))
         decoder_cfg.update(decoder or {})
+        decoder_cfg["fused_gather"] = fused_gather
         self.num_classes, self.max_gt = num_classes, max_gt
         self.pts_bbox_head = RaCFormerHead(
             num_classes, num_query, num_clusters, C, pc_range, decoder_cfg,
-            query_denoising=query_denoising, max_gt=max_gt)
+            query_denoising=query_denoising, max_gt=max_gt, dtype=head_dtype)
 
     def _trunk(self, imgs):
         """[S, N, H, W, 3] -> (level-concatenated sampler-ready pyramid
@@ -145,7 +154,8 @@ class RaCFormer(nn.Module):
 
     def _decode(self, feat_cat, lss_bev, radar_bev, lidar2img, time_diff,
                 **gt):
-        return self.pts_bbox_head(feat_cat, lss_bev.float(), radar_bev.float(),
+        dt = self.head_dtype
+        return self.pts_bbox_head(feat_cat, lss_bev.to(dt), radar_bev.to(dt),
                                   lidar2img.float(), time_diff.float(), **gt)
 
     @torch.no_grad()
@@ -253,7 +263,29 @@ class RaCFormer(nn.Module):
 CONFIG_FIELDS = ("num_cams", "num_frames", "embed_dims", "num_query",
                  "num_clusters", "num_levels", "num_groups", "num_classes",
                  "decoder", "image_hw", "pc_range", "depth_bins", "bev_size",
-                 "query_denoising", "max_gt", "bn_frame0_only")
+                 "query_denoising", "num_decoder_layers", "max_gt",
+                 "trunk_dtype", "head_dtype", "bn_frame0_only", "fused_gather")
+# the dtype names a config (or an --override) gives, as flax accepts them
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def _dtype(field: str, value) -> torch.dtype:
+    if isinstance(value, torch.dtype) and value in DTYPES.values():
+        return value
+    if isinstance(value, str) and value in DTYPES:
+        return DTYPES[value]
+    raise ValueError(f"{field}={value!r}: expected one of {sorted(DTYPES)}")
+
+
+def _fused_gather(value) -> Optional[bool]:
+    """None, a bool, or "true" / "false" in any case (an --override of
+    `model.fused_gather=false` arrives as the string)."""
+    if value is None or isinstance(value, bool):
+        return value
+    if isinstance(value, str) and value.lower() in ("true", "false"):
+        return value.lower() == "true"
+    raise ValueError(f"fused_gather={value!r}: expected None, True or False")
 
 
 def config_kwargs(cfg) -> dict:
@@ -262,18 +294,28 @@ def config_kwargs(cfg) -> dict:
     fields, one class per name of `class_names` unless the block names
     `num_classes`, the `decoder` block unless the model block has one.
 
-    A field of the `model` block that the port cannot honour (the JAX
-    model's `trunk_dtype`, `head_dtype`, `fused_gather`,
-    `num_decoder_layers`, or an unknown name) raises a ValueError, as does
-    an unknown decoder `remat_policy` (`nn.decoder.REMAT_POLICIES`)."""
+    Every field of the JAX `RaCFormer` is taken but `train_mode` (the
+    port's `model.train()`), dtypes as names (`DTYPES`) or torch dtypes,
+    the decoder's `gather_dtype` likewise. An unknown field, a dtype or a
+    `fused_gather` the port cannot read, or an unknown decoder
+    `remat_policy` (`nn.decoder.REMAT_POLICIES`) raises a ValueError that
+    names it."""
     kwargs = dict(cfg["model"])
     unknown = sorted(set(kwargs) - set(CONFIG_FIELDS))
     if unknown:
         raise ValueError(f"model fields the port cannot honour: {unknown} "
                          f"(it takes {list(CONFIG_FIELDS)})")
+    for field in ("trunk_dtype", "head_dtype"):
+        if field in kwargs:
+            kwargs[field] = _dtype(field, kwargs[field])
+    if "fused_gather" in kwargs:
+        kwargs["fused_gather"] = _fused_gather(kwargs["fused_gather"])
     if "num_classes" not in kwargs and cfg.get("class_names"):
         kwargs["num_classes"] = len(cfg["class_names"])
     kwargs["decoder"] = dict(kwargs.get("decoder") or cfg.get("decoder") or {})
+    if "gather_dtype" in kwargs["decoder"]:
+        kwargs["decoder"]["gather_dtype"] = _dtype(
+            "decoder.gather_dtype", kwargs["decoder"]["gather_dtype"])
     resolve_remat_policy(kwargs["decoder"].get("remat_policy"))
     return kwargs
 

@@ -19,6 +19,14 @@ selective-checkpoint context instead of recomputing them. The iteration's
 dropout masks come from a seed drawn before the checkpointed call, so the
 recompute draws the same masks (`torch.utils.checkpoint` restores only the
 global RNG state).
+
+The layers compute in `dtype` (the model's `head_dtype`, float32 by
+default) from float32 parameters, as the JAX package's head does: the
+query features and the carry between iterations are in it, the sample
+points, sampler weights and box refinement in float32, and the class
+scores and boxes are returned in float32. `fused_gather` False samples
+every point in eval mode too (K2's forward under no_grad) instead of the
+fold gather (K1).
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from .bev_sampling import BEVSampling
 from .conv_gru import RadarBEVTemporalEncoder
 from .img_sampling import ImageRadialSampling
 from .layers import (Dropout, DropoutRNG, Linear, current_dropout_rng,
-                     dropout_rng, layer_norm)
+                     dropout_rng, flax_add, layer_norm)
 from .sasa import ScaleAdaptiveSelfAttention
 
 CLS_PRIOR_BIAS = -4.59511985013459  # bias_init_with_prob(0.01)
@@ -95,15 +103,18 @@ class FFN(nn.Module):
     """mmcv FFN with residual and dropout 0.1 after each linear; keys
     `layers.0.0` and `layers.1`."""
 
-    def __init__(self, dims: int, hidden: int = 512):
+    def __init__(self, dims: int, hidden: int = 512,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.layers = nn.Sequential(
-            nn.Sequential(Linear(dims, hidden), nn.ReLU()), Linear(hidden, dims))
+            nn.Sequential(Linear(dims, hidden, dtype=dtype), nn.ReLU()),
+            Linear(hidden, dims, dtype=dtype))
         self.dropout = Dropout(0.1)
 
     def forward(self, x):
         h = self.dropout(self.layers[0](x))
-        return x + self.dropout(self.layers[1](h))
+        return flax_add(x, self.dropout(self.layers[1](h)), self.dtype)
 
 
 class RaCFormerDecoderLayer(nn.Module):
@@ -111,39 +122,44 @@ class RaCFormerDecoderLayer(nn.Module):
                  num_points_bev=4, num_levels=4, num_classes=10, code_size=10,
                  img_depth_num=3, bev_depth_num=5, num_ray=150,
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
-                 bev_spatial_shape=(128, 128), image_hw=(256, 704)):
+                 bev_spatial_shape=(128, 128), image_hw=(256, 704),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        C = embed_dims
+        C, dt = embed_dims, dtype
+        self.dtype = dtype
         self.num_frames, self.num_ray = num_frames, num_ray
         self.image_hw = tuple(image_hw)
         self.position_encoder = nn.Sequential(
-            Linear(3, C), layer_norm(C), nn.ReLU(),
-            Linear(C, C), layer_norm(C), nn.ReLU())
-        self.self_attn = ScaleAdaptiveSelfAttention(C, 8, pc_range)
-        self.norm1 = layer_norm(C)
+            Linear(3, C, dtype=dt), layer_norm(C, dt), nn.ReLU(),
+            Linear(C, C, dtype=dt), layer_norm(C, dt), nn.ReLU())
+        self.self_attn = ScaleAdaptiveSelfAttention(C, 8, pc_range, dt)
+        self.norm1 = layer_norm(C, dt)
         bev = dict(embed_dims=C, num_frames=num_frames, num_heads=4,
                    num_points=num_points_bev, depth_num=bev_depth_num,
-                   pc_range=pc_range, spatial_shape=bev_spatial_shape)
+                   pc_range=pc_range, spatial_shape=bev_spatial_shape,
+                   dtype=dt)
         self.sampling_radar_bev = BEVSampling(**bev)
-        self.sampling_radar_bev.temporal_encoder = RadarBEVTemporalEncoder(C)
-        self.norm_radar_bev = layer_norm(C)
+        self.sampling_radar_bev.temporal_encoder = RadarBEVTemporalEncoder(
+            C, dtype=dt)
+        self.norm_radar_bev = layer_norm(C, dt)
         self.sampling_lss_bev = BEVSampling(**bev)
-        self.norm_lss_bev = layer_norm(C)
+        self.norm_lss_bev = layer_norm(C, dt)
         self.sampling = ImageRadialSampling(
             C, num_frames, 4, num_points, num_levels, img_depth_num, pc_range)
         self.mixing = AdaptiveMixing(num_points * num_frames * img_depth_num,
-                                     128, 4, C)
-        self.norm2 = layer_norm(C)
-        self.fusion = Linear(3 * C, C)
-        self.norm_fusion = layer_norm(C)
-        self.ffn = FFN(C, 512)
-        self.norm3 = layer_norm(C)
+                                     128, 4, C, dt)
+        self.norm2 = layer_norm(C, dt)
+        self.fusion = Linear(3 * C, C, dtype=dt)
+        self.norm_fusion = layer_norm(C, dt)
+        self.ffn = FFN(C, 512, dt)
+        self.norm3 = layer_norm(C, dt)
         self.cls_branch = nn.Sequential(
-            Linear(C, C), layer_norm(C), nn.ReLU(),
-            Linear(C, C), layer_norm(C), nn.ReLU(), Linear(C, num_classes))
+            Linear(C, C, dtype=dt), layer_norm(C, dt), nn.ReLU(),
+            Linear(C, C, dtype=dt), layer_norm(C, dt), nn.ReLU(),
+            Linear(C, num_classes, dtype=dt))
         self.reg_branch = nn.Sequential(
-            Linear(C, C), nn.ReLU(), Linear(C, C), nn.ReLU(),
-            Linear(C, code_size))
+            Linear(C, C, dtype=dt), nn.ReLU(), Linear(C, C, dtype=dt),
+            nn.ReLU(), Linear(C, code_size, dtype=dt))
 
     def refine_bbox(self, bbox_proposal, bbox_delta):
         """Polar residual update."""
@@ -154,18 +170,21 @@ class RaCFormerDecoderLayer(nn.Module):
         return torch.cat([theta, dz_new, bbox_delta[..., 3:]], dim=-1)
 
     def forward(self, query_bbox, query_feat, feat_cat, lss_value, radar_value,
-                lidar2img, time_diff, d_region, attn_mask=None):
+                lidar2img, time_diff, d_region, attn_mask=None, fold=True):
         """Returns (cls_score [B, Q, cls], polar bbox_pred [B, Q, 10],
-        query_feat [B, Q, C])."""
-        query_feat = query_feat + self.position_encoder(query_bbox[..., :3])
+        query_feat [B, Q, C]); fold: the samplers' fold gather in eval
+        mode."""
+        query_feat = flax_add(query_feat,
+                              self.position_encoder(query_bbox[..., :3]),
+                              self.dtype)
         query_feat = self.norm1(self.self_attn(query_bbox, query_feat,
                                                attn_mask))
         q_radar = self.norm_radar_bev(self.sampling_radar_bev(
-            query_bbox, query_feat, radar_value, time_diff, d_region))
+            query_bbox, query_feat, radar_value, time_diff, d_region, fold))
         q_lss = self.norm_lss_bev(self.sampling_lss_bev(
-            query_bbox, query_feat, lss_value, time_diff, d_region))
+            query_bbox, query_feat, lss_value, time_diff, d_region, fold))
         sampled = self.sampling(query_bbox, query_feat, feat_cat, lidar2img,
-                                time_diff, self.image_hw, d_region)
+                                time_diff, self.image_hw, d_region, fold)
         query_feat = self.norm2(self.mixing(sampled, query_feat))
         query_feat = self.norm_fusion(self.fusion(
             torch.cat([query_feat, q_radar, q_lss], dim=-1)))
@@ -186,11 +205,13 @@ class RaCFormerDecoder(nn.Module):
     def __init__(self, num_layers: int = 6,
                  d_region_list: Sequence[float] = (0.08, 0.07, 0.06, 0.05, 0.04, 0.03),
                  gather_dtype: torch.dtype = torch.bfloat16,
-                 remat_policy: Optional[str] = None, **layer_cfg):
+                 remat_policy: Optional[str] = None,
+                 fused_gather: Optional[bool] = None, **layer_cfg):
         super().__init__()
         self.num_layers = num_layers
         self.d_region_list = tuple(d_region_list)
         self.gather_dtype = gather_dtype
+        self.fused_gather = fused_gather
         self.remat = True  # checkpoint each iteration in train mode
         self.remat_policy = resolve_remat_policy(remat_policy)
         self.decoder_layer = RaCFormerDecoderLayer(**layer_cfg)
@@ -219,7 +240,8 @@ class RaCFormerDecoder(nn.Module):
         for i in range(self.num_layers):
             args = (None if rng is None else rng.spawn(), query_bbox,
                     query_feat, feat_cat, lss_value, radar_value, lidar2img,
-                    time_diff, self.d_region_list[i], attn_mask)
+                    time_diff, self.d_region_list[i], attn_mask,
+                    self.fused_gather is not False)
             if remat:
                 context = remat_context(self.remat_policy)
                 kw = {} if context is None else {"context_fn": context}

@@ -7,7 +7,11 @@ boxes reassembled into the 10-dim normalized layout
 Query denoising follows the JAX package's static form: `max_gt` GT slots per
 sample in each of `dn_groups` noise groups, invalid slots masked. Its random
 draws are made by `dn_draws` from an explicit generator and passed in, so a
-caller (or a test) can hold them fixed."""
+caller (or a test) can hold them fixed.
+
+The query features start in `dtype` (the head's compute dtype: the label
+embedding's rows in it, as the JAX head's `label_enc`); the query boxes are
+float32."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch.nn as nn
 
 from ..ops.bbox_codec import encode_bbox, xy_to_theta_d
 from .decoder import RaCFormerDecoder
+from .layers import Embedding
 
 CODE_WEIGHTS = (2.0, 2.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
 DN_BOX_NOISE = 0.5  # the JAX head's dn_bbox_noise_scale
@@ -70,7 +75,7 @@ class RaCFormerHead(nn.Module):
                  pc_range=(-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
                  decoder_cfg: Optional[dict[str, Any]] = None,
                  query_denoising: bool = True, dn_groups: int = 10,
-                 max_gt: int = 64):
+                 max_gt: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes, self.num_query = num_classes, num_query
         self.num_clusters, self.embed_dims = num_clusters, embed_dims
@@ -80,9 +85,10 @@ class RaCFormerHead(nn.Module):
         # training-loss weights; stored because the reference checkpoint has them
         self.register_buffer("code_weights", torch.tensor(CODE_WEIGHTS))
         self.init_query_bbox = nn.Embedding(num_query, 10)
-        self.label_enc = nn.Embedding(num_classes + 1, embed_dims - 1)
+        self.label_enc = Embedding(num_classes + 1, embed_dims - 1, dtype)
         self.transformer = nn.Module()  # reference nesting: transformer.decoder
-        self.transformer.decoder = RaCFormerDecoder(**(decoder_cfg or {}))
+        self.transformer.decoder = RaCFormerDecoder(
+            **{**(decoder_cfg or {}), "dtype": dtype})
         self.reset_query_bbox()
 
     @torch.no_grad()
@@ -140,8 +146,9 @@ class RaCFormerHead(nn.Module):
         B = lss_bev.shape[0]
         Q, C = self.num_query, self.embed_dims
         query_bbox = self.init_query_bbox.weight[None].expand(B, Q, 10)
-        base = torch.cat([self.label_enc.weight[self.num_classes],
-                          self.label_enc.weight.new_zeros(1)])
+        dt = self.label_enc.compute_dtype
+        base = self.label_enc.weight[self.num_classes].to(dt)
+        base = torch.cat([base, base.new_zeros(1)])
         query_feat = base[None, None].expand(B, Q, C)
         attn_mask, S = None, 0
         use_dn = (self.training and self.query_denoising
@@ -153,8 +160,8 @@ class RaCFormerHead(nn.Module):
             dn_bbox, dn_labels, dn_valid = self._dn_prepare(
                 gt_bboxes, gt_labels, gt_mask, dn)
             S = dn_bbox.shape[1]
-            dn_feat = torch.cat([self.label_enc(dn_labels.long()),
-                                 dn_bbox.new_ones(B, S, 1)], dim=-1)
+            dn_feat = self.label_enc(dn_labels.long())
+            dn_feat = torch.cat([dn_feat, dn_feat.new_ones(B, S, 1)], dim=-1)
             dn_feat = torch.where(dn_valid[..., None], dn_feat,
                                   torch.zeros_like(dn_feat))
             query_bbox = torch.cat([dn_bbox, query_bbox], dim=1)

@@ -2,7 +2,8 @@
 `racformer_tpu/nn/img_sampling.py`): learned box-anchored 3D offsets
 (depth x groups x points), per-frame velocity warp, per-layer shrinking
 radial perturbation, projection into every camera of every frame and the
-multi-level gather over the level-concatenated pyramid."""
+multi-level gather over the level-concatenated pyramid. Its layers run in
+float32 whatever the head's dtype, as the JAX package pins them."""
 
 from __future__ import annotations
 
@@ -36,14 +37,17 @@ class ImageRadialSampling(nn.Module):
         self.num_levels, self.depth_num = num_levels, depth_num
         self.pc_range = tuple(pc_range)
         D, G, P, L = depth_num, num_groups, num_points, num_levels
-        self.sampling_offset = Linear(embed_dims, D * G * P * 3)
-        self.ray_points_offset = Linear(embed_dims, D)
-        self.scale_weights = Linear(embed_dims, G * num_frames * D * P * L)
+        f32 = torch.float32
+        self.sampling_offset = Linear(embed_dims, D * G * P * 3, dtype=f32)
+        self.ray_points_offset = Linear(embed_dims, D, dtype=f32)
+        self.scale_weights = Linear(embed_dims, G * num_frames * D * P * L,
+                                    dtype=f32)
 
     def forward(self, query_ray, query_feat, feat_cat, lidar2img, time_diff,
-                image_hw, d_region):
+                image_hw, d_region, fold=True):
         """query_ray: [B, Q, 10] polar; feat_cat: [B, T, G, N, rcat, Wmax, 2c];
-        lidar2img: [B, T, N, 4, 4]; time_diff: [B, T].
+        lidar2img: [B, T, N, 4, 4]; time_diff: [B, T]; fold: the fold
+        gather in eval mode (else every point is sampled).
         Returns [B, Q, G, T*P*D, c]."""
         B, Q, _ = query_ray.shape
         T, G, P, D, L = (self.num_frames, self.num_groups, self.num_points,
@@ -71,4 +75,4 @@ class ImageRadialSampling(nn.Module):
         w = torch.softmax(w, dim=-1)
         return sample_image_features(
             sample_points, feat_cat, w, lidar2img, image_hw[0], image_hw[1],
-            concat_geometry(image_hw, L), fold=not self.training)
+            concat_geometry(image_hw, L), fold=fold and not self.training)

@@ -5,7 +5,19 @@ Conventions, as in the JAX package:
     PyTorch's NCHW view and back, which costs no copy because the permuted
     tensor is already in channels_last memory order;
   * parameters are float32; a layer computes in its input's dtype (bf16 in
-    the image trunk, f32 in the head), casting its weights per call;
+    the image trunk), casting its weights per call, unless it is given a
+    compute `dtype`: then it works as flax's `dtype=` does, casting its
+    input and weights at use (the head's `head_dtype`, or float32 where the
+    JAX package pins a layer to it);
+  * below float32 (a bf16 head) values are rounded where the JAX package's
+    program rounds them on the CPU, which the tests compare against: a
+    matrix product or a convolution rounds its result to the dtype; an
+    elementwise op rounds its result when a bf16 op consumes it, but not
+    when the consumer converts it to float32 (XLA then computes it in
+    float32). So a `Linear` below float32 returns its rounded product plus
+    its bias as a float32 sum (`flax_add` likewise for a residual), which
+    its consumer rounds (`.to(dtype)`, a bf16 layer) or reads whole (a
+    LayerNorm, a float32 layer or cast);
   * normalization layers hold the reference checkpoint's tensors (weight,
     bias, running_mean, running_var, num_batches_tracked). In eval mode they
     apply the affine map folded into one multiply-add; in train mode
@@ -31,30 +43,86 @@ LN_EPS = 1e-6  # flax `nn.LayerNorm` default, which the JAX package uses
 SYNCS = 0  # all-reduces made by train-mode `BatchNorm` across ranks
 
 
+def flax_add(a, b, dtype):
+    """a + b as the JAX package's program computes a sum in `dtype`: the
+    operands rounded to `dtype`, the sum kept in float32 for its consumer
+    to round or read whole (the module docstring). In float32, a + b."""
+    return a.to(dtype).float() + b.to(dtype).float()
+
+
 class Conv2d(nn.Conv2d):
-    """`nn.Conv2d` on channel-last tensors, in the input dtype. Padding is
+    """`nn.Conv2d` on channel-last tensors, in the input dtype or, given
+    `dtype`, in that dtype as flax's `nn.Conv(dtype=...)`. Padding is
     symmetric, `dilation * (kernel - 1) // 2` unless given."""
 
     def __init__(self, cin, cout, kernel, stride=1, padding=None, dilation=1,
-                 bias=True):
+                 bias=True, dtype=None):
         if padding is None:
             padding = dilation * (kernel - 1) // 2
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
                          dilation=dilation, bias=bias)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
+        dt = self.compute_dtype or x.dtype
+        # a compute dtype below float32 rounds the product before the bias
+        # is added, as flax does (the consumers here are bf16 ops)
+        late = self.bias is not None and self.compute_dtype not in (
+            None, torch.float32)
+        b = None if self.bias is None or late else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), b,
                      self.stride, self.padding, self.dilation)
-        return y.permute(0, 2, 3, 1)
+        y = y.permute(0, 2, 3, 1)
+        return y + self.bias.to(dt) if late else y
 
 
 class Linear(nn.Linear):
-    """`nn.Linear` in the input dtype."""
+    """`nn.Linear` in `dtype` (flax `nn.Dense(dtype=...)`), or in the input
+    dtype when `dtype` is None. Below float32 with a bias it returns the
+    product rounded to `dtype` plus the bias, in float32 (the module
+    docstring)."""
+
+    def __init__(self, cin, cout, bias=True, dtype=None):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        return dense(x, self.weight, self.bias, self.compute_dtype or x.dtype)
+
+
+def dense(x, weight, bias, dtype):
+    """`Linear`'s product in `dtype`: F.linear in float32; below it the
+    product rounded to `dtype` plus the bias in float32, as flax's Dense."""
+    x, weight = x.to(dtype), weight.to(dtype)
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    y = F.linear(x, weight)
+    return y if bias is None else flax_add(y, bias, dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `nn.LayerNorm(dtype=...)` (eps 1e-6): statistics and the affine
+    map in float32, the result in `dtype` (the input dtype when None)."""
+
+    def __init__(self, dim: int, dtype=None):
+        super().__init__(dim, eps=LN_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype or x.dtype)
+
+
+class Embedding(nn.Embedding):
+    """flax `nn.Embed(dtype=...)`: rows of the float32 table in `dtype`."""
+
+    def __init__(self, num: int, dim: int, dtype=torch.float32):
+        super().__init__(num, dim)
+        self.compute_dtype = dtype
+
+    def forward(self, idx):
+        return self.weight.to(self.compute_dtype)[idx]
 
 
 class Conv1x1Linear(nn.Conv2d):
@@ -203,8 +271,8 @@ class Dropout(nn.Module):
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+def layer_norm(dim: int, dtype=None) -> LayerNorm:
+    return LayerNorm(dim, dtype)
 
 
 class ConvModule(nn.Module):
@@ -252,10 +320,25 @@ class SELayer(nn.Module):
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """`Upsample(mode='bilinear', align_corners=True)` on [..., H, W, C]."""
-    lead = x.shape[:-3]
-    H, W, C = x.shape[-3:]
-    y = x.reshape(-1, H, W, C).permute(0, 3, 1, 2)
-    y = F.interpolate(y, size=tuple(out_hw), mode="bilinear",
-                      align_corners=True)
-    return y.permute(0, 2, 3, 1).reshape(*lead, *out_hw, C)
+    """`Upsample(mode='bilinear', align_corners=True)` on [..., H, W, C], as
+    the JAX package computes it: a lerp along H, then along W, in x's dtype
+    (its lerp weights and each product rounded to that dtype)."""
+
+    def axis_interp(a, n_out, axis):
+        n_in = a.shape[axis]
+        if n_in == n_out:
+            return a
+        if n_in == 1 or n_out == 1:
+            pos = torch.zeros(n_out, device=a.device)
+        else:
+            pos = torch.linspace(0.0, n_in - 1.0, n_out, device=a.device)
+        lo = torch.floor(pos).long()
+        hi = (lo + 1).clamp(max=n_in - 1)
+        shape = [1] * a.dim()
+        shape[axis] = n_out
+        w = (pos - lo).to(a.dtype).reshape(shape)
+        return (a.index_select(axis, lo) * (1 - w)
+                + a.index_select(axis, hi) * w)
+
+    x = axis_interp(x, out_hw[0], x.dim() - 3)
+    return axis_interp(x, out_hw[1], x.dim() - 2)

@@ -286,6 +286,75 @@ _IN_PROJ = re.compile(
     rf"attention\.attn\.in_proj_(weight|bias)$")
 
 
+def _vovnet_rules(key: str):
+    """`nn.vovnet.VoVNet`'s keys (the public VoVNet's) -> the JAX
+    `VoVNet`'s paths."""
+    m = re.match(r"stage(\d)\.OSA\d_(\d+)\.ese\.fc\.(weight|bias)$", key)
+    if m:
+        n, b, leaf = m.groups()
+        path = f"params/stage{n}_{int(b) - 1}/ese/fc"
+        return ((f"{path}/kernel", _dense_or_conv1x1) if leaf == "weight"
+                else (f"{path}/bias", np.asarray))
+    m = re.match(r"stem\.stem_(\d)/(conv|norm)\.(\w+)$", key)
+    if m:
+        mod, part, leaf = f"stem{m.group(1)}", m.group(2), m.group(3)
+    else:
+        m = re.match(r"stage(\d)\.OSA\d_(\d+)\.(?:layers\.(\d+)|concat)\."
+                     r"OSA[\w]+/(conv|norm)\.(\w+)$", key)
+        if m is None:
+            return None
+        n, b, layer, part, leaf = m.groups()
+        inner = "concat" if layer is None else f"layer{layer}"
+        mod = f"stage{n}_{int(b) - 1}/{inner}"
+    if part == "conv":
+        return f"params/{mod}/conv/kernel", _conv
+    return _bn_leaf(f"{mod}/norm", leaf)
+
+
+def _bn_leaf(path: str, leaf: str):
+    kind = _BN[leaf]
+    return f"{kind[0]}/{path}/{kind[1]}", np.asarray
+
+
+def _bev_resnet_rules(key: str):
+    """`nn.bev_nets.BEVResNet`'s keys -> the JAX `BEVResNet`'s paths."""
+    m = re.match(r"layers\.(\d+)\.(\d+)\.(conv|bn)(\d)\.(\w+)$", key)
+    if m:
+        i, j, part, c, leaf = m.groups()
+        path = f"l{i}_{j}/conv{c}"
+        if part == "conv":
+            return f"params/{path}/conv/kernel", _conv
+        return _bn_leaf(f"{path}/norm", leaf)
+    m = re.match(r"layers\.(\d+)\.0\.downsample\.(weight|bias)$", key)
+    if m:
+        i, leaf = m.groups()
+        return ((f"params/l{i}_0/downsample/kernel", _conv) if leaf == "weight"
+                else (f"params/l{i}_0/downsample/bias", np.asarray))
+    return None
+
+
+def _fpn_lss_rules(key: str):
+    """`nn.bev_nets.FPNLSS`'s keys (the reference `FPN_LSS`'s) -> the JAX
+    `FPNLSS`'s paths."""
+    convs = {"conv.0": "conv1", "conv.3": "conv2", "up2.1": "up_conv"}
+    norms = {"conv.1": "conv1", "conv.4": "conv2", "up2.2": "up_conv"}
+    mod, _, leaf = key.rpartition(".")
+    if mod in convs and leaf == "weight":
+        return f"params/{convs[mod]}/conv/kernel", _conv
+    if mod in norms and leaf in _BN:
+        return _bn_leaf(f"{norms[mod]}/norm", leaf)
+    if mod == "up2.4":
+        return (("params/up_proj/kernel", _conv) if leaf == "weight"
+                else ("params/up_proj/bias", np.asarray))
+    return None
+
+
+# the rules of modules converted on their own (their parameters at the flax
+# tree's root), by the port class's name; every other model takes `rule`
+MODULE_RULES = {"VoVNet": _vovnet_rules, "BEVResNet": _bev_resnet_rules,
+                "FPNLSS": _fpn_lss_rules}
+
+
 def rule(key: str):
     """(flax path, forward transform) of a port state-dict key, or None."""
     for prefix, fn in (("img_backbone.", _resnet_rules),
@@ -321,6 +390,7 @@ def state_dict_from_jax(variables_np: Dict, model: torch.nn.Module,
     Returns a state dict for `model.load_state_dict`. Raises KeyError for a
     port key with no flax counterpart."""
     out = {}
+    key_rule = MODULE_RULES.get(type(model).__name__, rule)
     for key, ref in model.state_dict().items():
         if keys is not None and key not in keys:
             continue
@@ -335,7 +405,7 @@ def state_dict_from_jax(variables_np: Dict, model: torch.nn.Module,
             value = np.concatenate(
                 [p.T if leaf == "kernel" else p for p in parts], axis=0)
         else:
-            found = rule(key)
+            found = key_rule(key)
             if found is None:
                 raise KeyError(f"no flax path for port key {key}")
             path, fn = found

@@ -7,11 +7,14 @@ everywhere. In `tests/test_integration_golden.py`'s order: the encode stage
 (LSS BEV, radar BEV), then the depth logits, then the final class scores
 and boxes.
 
-Marked `slow`: at full width the CPU needs tens of minutes and tens of GiB
-(the JAX package's flagship golden alike). `golden_pair` / `hold_golden`
-also serve `tests/test_torch_vod.py` at tiny shapes, where the JAX side
-runs its fused fold kernel (K1's Pallas original) in interpret mode; at
-full width it takes its plain CPU path, as the JAX package's goldens do.
+The VoD case runs in tier 1 (one camera, one frame: ~20 s on the CPU);
+the flagship case is marked `slow` (a full-size JAX compile and 48 images
+in one test worker). `hold_golden` returns each stage's largest deviation
+beside its tolerance and names them in its assertion messages; run with
+`-s` to print them. `golden_pair` / `hold_golden` also serve
+`tests/test_torch_vod.py` at tiny shapes, where the JAX side runs its
+fused fold kernel (K1's Pallas original) in interpret mode; at full width
+it takes its plain CPU path, as the JAX package's goldens do.
 
 Tolerances: at tiny shapes `tests/test_torch_slice.py`'s (1e-3; 2e-3 for
 the head's outputs), at full width `tests/test_integration_golden.py`'s at
@@ -89,7 +92,9 @@ def in_view_share(num_cams):
 def hold_golden(pair):
     """The encode stage, the depth logits, then the final scores and boxes
     of the port's forward against the JAX forward's; the image sampler
-    reads real features (not only its zero border)."""
+    reads real features (not only its zero border). Returns {stage:
+    (largest |port - JAX|, largest |JAX|, (rtol, atol))}, the deviation
+    also in each assertion's message."""
     batch, model, want, inter = (pair[k] for k in ("batch", "model", "want",
                                                   "inter"))
     tol = pair["tol"]
@@ -110,35 +115,43 @@ def hold_golden(pair):
             got = model(preprocess_images(t["imgs"]), *[t[k] for k in ARG_KEYS])
     finally:
         hook.remove()
-    rtol, atol = tol["encode"]
-    np.testing.assert_allclose(lss_t.numpy(), np.asarray(lss), rtol=rtol,
-                               atol=atol, err_msg="LSS BEV")
-    np.testing.assert_allclose(radar_t.numpy(), np.asarray(radar), rtol=rtol,
-                               atol=atol, err_msg="radar BEV")
-    rtol, atol = tol["depth"]
-    np.testing.assert_allclose(depth_t.numpy(), np.asarray(depth).reshape(
-        depth_t.shape), rtol=rtol, atol=atol, err_msg="depth logits (encode)")
-    np.testing.assert_allclose(got["depth_logits"].numpy(),
-                               want["depth_logits"], rtol=rtol, atol=atol,
-                               err_msg="depth logits")
-    rtol, atol = tol["head"]
-    np.testing.assert_allclose(got["all_cls_scores"].numpy(),
-                               want["all_cls_scores"], rtol=rtol, atol=atol,
-                               err_msg="final cls scores")
-    np.testing.assert_allclose(got["all_bbox_preds"].numpy(),
-                               want["all_bbox_preds"], rtol=rtol, atol=atol,
-                               err_msg="final bbox preds")
+    stages = (("LSS BEV", "encode", lss_t, lss),
+              ("radar BEV", "encode", radar_t, radar),
+              ("depth logits (encode)", "depth", depth_t,
+               np.asarray(depth).reshape(depth_t.shape)),
+              ("depth logits", "depth", got["depth_logits"],
+               want["depth_logits"]),
+              ("final cls scores", "head", got["all_cls_scores"],
+               want["all_cls_scores"]),
+              ("final bbox preds", "head", got["all_bbox_preds"],
+               want["all_bbox_preds"]))
+    report = {}
+    for name, kind, port, ref in stages:
+        port, ref = port.numpy(), np.asarray(ref)
+        rtol, atol = tol[kind]
+        report[name] = (float(np.abs(port - ref).max()),
+                        float(np.abs(ref).max()), (rtol, atol))
+        np.testing.assert_allclose(
+            port, ref, rtol=rtol, atol=atol,
+            err_msg=f"{name}: largest deviation {report[name][0]:.3g} "
+                    f"(largest |value| {report[name][1]:.3g}) against rtol "
+                    f"{rtol}, atol {atol}")
     least = in_view_share(model.num_cams)
     assert all((s != 0).float().mean() > least for s in sampled)
+    return report
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("config", ["racformer_r50_nuimg_704x256_f8.py",
-                                    "racformer_vod.py"])
+@pytest.mark.parametrize("config", [
+    pytest.param("racformer_r50_nuimg_704x256_f8.py", marks=pytest.mark.slow),
+    "racformer_vod.py"])
 def test_full_width_golden(config):
     cfg = Config.fromfile(str(CONFIGS / config))
     kwargs = config_kwargs(cfg)
     H, W = kwargs["image_hw"]
     batch = ring_batch(0, T=kwargs["num_frames"], N=kwargs["num_cams"], H=H,
                        W=W, P=int(cfg["radar"]["max_points"]))
-    hold_golden(golden_pair(kwargs, batch, seed=0, fused=False, tol=FULL_TOL))
+    report = hold_golden(golden_pair(kwargs, batch, seed=0, fused=False,
+                                     tol=FULL_TOL))
+    for name, (dev, top, (rtol, atol)) in report.items():
+        print(f"{config} {name}: largest deviation {dev:.4g} (largest |value| "
+              f"{top:.4g}); rtol {rtol}, atol {atol}")

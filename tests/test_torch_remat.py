@@ -29,9 +29,11 @@ WANT = {"full": 2 * FORWARD, "dots": 2 * FORWARD,
         "save_bev": FORWARD + LAYERS * MICRO}
 
 
-def step_with(policy, monkeypatch):
+def step_with(policy, monkeypatch, **model_kw):
+    """One train step under `policy` (the model's arguments `model_kw`
+    over the workers' tiny config): (metrics, gradients, K2 calls)."""
     kw = dict(workers.KW, decoder=dict(workers.KW["decoder"],
-                                       remat_policy=policy))
+                                       remat_policy=policy), **model_kw)
     model = random_init_(RaCFormer(**kw), torch.Generator().manual_seed(2))
     assert model.pts_bbox_head.transformer.decoder.remat_policy == policy
     opt = Optimizer(model.named_parameters(), base_lr=0.0)

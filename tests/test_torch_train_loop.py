@@ -1,9 +1,10 @@
 """The pieces of the port's training loop against the JAX package, on the
 same numpy inputs:
 
-* `config_kwargs` honours or refuses every field of a config's `model`
-  block (the old copy dropped `bn_frame0_only` silently) and passes the
-  JAX package's five decoder remat policies on;
+* `config_kwargs` honours every field of a config's `model` block that
+  the JAX `RaCFormer` takes (the old copy dropped `bn_frame0_only`
+  silently) and refuses unknown fields and values it cannot read, and
+  passes the JAX package's five decoder remat policies on;
 * `match_cost_cartesian` (1e-5), `ema_update` (1e-6 relative at steps 0,
   1, 2000 and 1e5), `MatchStatsHook` (JSON files byte-equal),
   `detection_loss(with_match=True)` (`_matched_q` equal, `_match_cost`
@@ -96,6 +97,24 @@ def test_config_kwargs_passes_bn_frame0_only():
 @pytest.mark.parametrize("field", ["trunk_dtype", "head_dtype", "fused_gather",
                                    "num_decoder_layers", "no_such_field"])
 def test_config_kwargs_refuses_what_the_port_cannot_honour(field):
+    """An unknown field, and a dtype field given something that is not a
+    dtype, raise a ValueError that names the field; `fused_gather` and
+    `num_decoder_layers`, which the port honours, reach the model."""
+    if field in ("fused_gather", "num_decoder_layers"):
+        value = {"fused_gather": False, "num_decoder_layers": 2}[field]
+        cfg = Config.fromfile(str(FLAGSHIP)).merge_override(
+            [f"model.{field}={value}"])
+        # the config's decoder block sets num_layers, which wins over the
+        # model field in both packages
+        del cfg["decoder"]["num_layers"]
+        kwargs = config_kwargs(cfg)
+        assert kwargs[field] == value
+        with torch.device("meta"):
+            decoder = RaCFormer(**kwargs).pts_bbox_head.transformer.decoder
+        got = {"fused_gather": decoder.fused_gather,
+               "num_decoder_layers": decoder.num_layers}[field]
+        assert got == value
+        return
     cfg = Config.fromfile(str(FLAGSHIP)).merge_override([f"model.{field}=1"])
     with pytest.raises(ValueError, match=field):
         config_kwargs(cfg)

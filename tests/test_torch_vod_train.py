@@ -84,7 +84,9 @@ def step_pair():
         mp.undo()
 
 
-def _run_step_pair(mp):
+def _run_step_pair(mp, head_dtype="float32"):
+    """The JAX step and the port's from the same weights, batch and draws,
+    the head computing in `head_dtype` (a dtype name) on both sides."""
     kw = vod_kwargs("model.max_gt=4", "decoder.num_layers=2",
                     "decoder.d_region_list=[0.08,0.07]")
     batch = _vod_batch(0)
@@ -95,7 +97,7 @@ def _run_step_pair(mp):
 
     jmodel = JaxRaCFormer(
         **{k: v for k, v in kw.items() if k != "decoder"},
-        num_decoder_layers=2, trunk_dtype=jnp.float32,
+        num_decoder_layers=2, trunk_dtype=jnp.float32, head_dtype=head_dtype,
         decoder={**{k: v for k, v in kw["decoder"].items() if k != "num_layers"},
                  "gather_dtype": jnp.float32, "bev_pallas": True,
                  "img_pallas": True},
@@ -123,7 +125,8 @@ def _run_step_pair(mp):
               "dn": dn, "dropout_seed": None} for k in mkeys]
     model = RaCFormer(**{**kw, "decoder": {**kw["decoder"],
                                            "gather_dtype": torch.float32}},
-                      trunk_dtype=torch.float32)
+                      trunk_dtype=torch.float32,
+                      head_dtype=getattr(torch, head_dtype))
     assert model.pts_bbox_head.transformer.decoder.num_layers == 2
     model.load_state_dict(state_dict_from_jax(variables, model))
     opt = Optimizer(model.named_parameters(), total_steps=TOTAL_STEPS)
