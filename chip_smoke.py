@@ -13,7 +13,8 @@ every card, and print the scaling between the two.
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card and settings: the card's name and power limit, both TF32 flags
-     (set off: the f32 head runs in full f32);
+     (set off by `racformer_tpu_torch/utils/precision.py`, as the drivers
+     set them: the f32 head runs in full f32);
   2. building the CUDA kernels K1-K4 (csrc/*.cu) from this checkout, one nvcc
      per source, all at once, and the native data loader
      (csrc/dataloader.cpp, g++ -ljpeg) where the toolchain allows;
@@ -153,7 +154,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      Prints each step's ms, the loader's wait, the checkpoint's bytes, each
      protocol's samples/s and the peak memory beside the card's name and
      power limit.
- 19. (run last) the model's `head_dtype` and `fused_gather` fields, read
+ 19. (run after 18) the model's `head_dtype` and `fused_gather` fields, read
      from the flagship config through `config_kwargs`, on phase 4's seeded
      weights and frames: (a) 5 streaming steps with the f32 head and 5
      with `head_dtype=bfloat16` (K1 18 a step), each step's ms, device
@@ -173,11 +174,30 @@ Phases, each printed as it runs; any failure exits non-zero:
      the bf16 relative error per stage, ms, device busy, GEMM / conv ms
      and peak) and BEVResNet +
      FPNLSS on a 128^2 BEV of 256 channels (shapes, ms).
+ 20. (run last) float16 maps: the flagship config with `model.trunk_dtype`
+     and `decoder.gather_dtype` float16 through `config_kwargs`, seeded
+     random weights: (a) K1 at the three eval sites and K2-K4 at the three
+     train sites of the flagship shapes, each against its plain version
+     (`force_reference()`) on the same inputs, at phases 3's and 7's
+     tolerances scaled to float16's epsilon (one output rounding: rtol and
+     atol 1.25e-3 where bf16 takes 1e-2; K3 2^-10 |ref| where bf16 takes
+     2^-7), each with its ms, plain ms, bound, share and library call, and
+     timed in turns with its bf16 instance on the same points; (b)
+     5 streaming steps (K1 18 a step; step ms, device busy, peak, the float16
+     maps' largest |value|) and the last window decoded with K1 and with its
+     plain version, within phase 5's bound; (c) one train step with K2-K4
+     (72, 36, 36) and one with their plain versions from equal weights,
+     batch and draws, within phase 9's bound. If the seeded weights
+     overflow float16 on both paths of (b) or (c), the run prints it and
+     goes on (the kernels are held at the op level in (a)); an overflow on
+     one path fails.
 The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
 13, 14, 16, 18 and 19, the K2-K4 entries theirs on phases 8, 14, 15, 17,
 18 and 19,
 each counted from 0 just before the phase's run (phases 15 and 16 count in
-their processes and report back, summed over the ranks).
+their processes and report back, summed over the ranks); the four
+`*_float16` entries hold phase 20's float16 runs: times, bounds and errors
+summed over (a)'s sites, launches from (b)'s steps and (c)'s kernel step.
 No module of JAX or of the JAX package may have been imported by the end.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -365,11 +385,9 @@ def phase_card():
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"[1] tf32: torch.backends.cuda.matmul.allow_tf32="
-          f"{torch.backends.cuda.matmul.allow_tf32} "
-          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    from racformer_tpu_torch.utils.precision import pin_float32_precision
+
+    pin_float32_precision(lambda line: print(f"[1] {line}"))
     return card
 
 
@@ -431,7 +449,8 @@ def kernel_name(mangled):
         end = len(digits) + int(digits)
         names.append(rest[len(digits):end])
         rest = rest[end:]
-    for prefix, dtype in (("IfE", "float"), ("I13__nv_bfloat16E", "bf16")):
+    for prefix, dtype in (("IfE", "float"), ("I13__nv_bfloat16E", "bf16"),
+                          ("I6__halfE", "f16")):
         if names and rest.startswith(prefix):
             return f"{names[-1]}<{dtype}>"
     return mangled[:60]
@@ -444,17 +463,26 @@ def blocks_by_registers(regs, warps=8):
     return min(64, 65536 // per_warp) // warps
 
 
+def rounding_tol(dtype):
+    """The relative tolerance for one output rounding to a 16-bit dtype on
+    each side: 1e-2 in bf16 (steps of 2^-7), scaled by the dtype's epsilon:
+    1.25e-3 in float16 (steps of 2^-10)."""
+    return 1e-2 * torch.finfo(dtype).eps / torch.finfo(torch.bfloat16).eps
+
+
 def fold_ok(got, want):
     """K1 against its plain version: (ok, max abs error, tolerance). f32:
-    the same f32 arithmetic, the fold sum in another order, atol 1e-5; bf16:
-    one output rounding each, rtol 1e-2 + atol 1e-2 max|ref|."""
+    the same f32 arithmetic, the fold sum in another order, atol 1e-5; bf16
+    and f16: one output rounding each, rtol + atol rtol max|ref| with rtol
+    `rounding_tol` (1e-2 bf16, 1.25e-3 f16)."""
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     if got.dtype == torch.float32:
         return err <= 1e-5, err, "atol 1e-5"
-    atol = 1e-2 * want.float().abs().max().item()
-    return (bool((diff <= atol + 1e-2 * want.float().abs()).all()), err,
-            f"rtol 1e-2 + atol {atol:.3g} (1e-2 max|ref|)")
+    tol = rounding_tol(got.dtype)
+    atol = tol * want.float().abs().max().item()
+    return (bool((diff <= atol + tol * want.float().abs()).all()), err,
+            f"rtol {tol:g} + atol {atol:.3g} ({tol:g} max|ref|)")
 
 
 def phase_kernel(model, dev):
@@ -1433,14 +1461,16 @@ def train_site_cases(model, gen, dtype, dev):
 def map_grad_ok(got, want):
     """K3 against its plain version: (ok, tolerance). Both sum the same f32
     terms in another order and round once to the map dtype: f32 within 1e-5
-    of max(1, max|ref|); bf16 within one bf16 step of each side's rounding,
-    2^-7 |ref|, plus 1e-5 max|ref| where the terms cancel."""
+    of max(1, max|ref|); bf16 and f16 within one step of each side's
+    rounding, eps |ref| (2^-7 bf16, 2^-10 f16), plus 1e-5 max|ref| where
+    the terms cancel."""
     err = (got.float() - want.float()).abs()
     top = want.float().abs().max().item()
     if want.dtype == torch.float32:
         return err.max().item() <= 1e-5 * max(1.0, top), "atol 1e-5 max(1, max|ref|)"
-    return (bool((err <= 2.0**-7 * want.float().abs() + 1e-5 * top).all()),
-            "2^-7 |ref| + 1e-5 max|ref|")
+    eps = torch.finfo(want.dtype).eps
+    return (bool((err <= eps * want.float().abs() + 1e-5 * top).all()),
+            f"2^{int(np.log2(eps))} |ref| + 1e-5 max|ref|")
 
 
 def largest_bucket(pts, R):
@@ -1548,11 +1578,12 @@ def compare(kname, got, want, dtype, floor=1.0):
     ref_max = want.float().abs().max().item()
     if kname == "patch_scatter":
         ok, tol = map_grad_ok(got, want)
-    elif dtype == torch.bfloat16:
-        # K2: one bf16 rounding of the output in each version
+    elif dtype != torch.float32:
+        # K2: one bf16 or f16 rounding of the output in each version
+        rtol = rounding_tol(dtype)
         ok = bool(((got.float() - want.float()).abs()
-                   <= 1e-2 * ref_max + 1e-2 * want.float().abs()).all())
-        tol = "rtol 1e-2 + atol 1e-2 max|ref|"
+                   <= rtol * ref_max + rtol * want.float().abs()).all())
+        tol = f"rtol {rtol:g} + atol {rtol:g} max|ref|"
     else:
         ok, tol = err <= 1e-5 * max(floor, ref_max), f"atol {atol}"
     return ok, err, f"{err:.3g}", tol
@@ -2151,11 +2182,10 @@ def worker(argv):
     step run under deterministic algorithms, as their references in the
     parent do. Saves the results to OUT/rank_<r>.pt."""
     from racformer_tpu_torch.ops import gather_kernel as gk
-    from racformer_tpu_torch.utils import distributed
+    from racformer_tpu_torch.utils import distributed, pin_float32_precision
 
     kind, out_dir, runs = argv[0], Path(argv[1]), json.loads(argv[2])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    pin_float32_precision()
     rank = int(os.environ["RANK"])
     dev = distributed.init("cuda")
     try:
@@ -3071,6 +3101,281 @@ def phase_head_dtype(cfg, dev, card):
     return tuple(int(n) for n in total)
 
 
+F16_STEPS = 5  # phase 20's streaming steps
+
+
+def finite_outputs(out):
+    """Whether a decoded window's last-layer logits and boxes are finite."""
+    return bool(torch.isfinite(out["all_cls_scores"][-1]).all()
+                and torch.isfinite(out["all_bbox_preds"][-1]).all())
+
+
+def in_turns(a, b, reps=10):
+    """CUDA-event medians of a() and b() timed in turns a, b, b, a: the mean
+    of each one's two medians."""
+    ta, tb, tb2, ta2 = (median_ms(fn, reps=reps, warmup=2) for fn in (a, b, b, a))
+    return (ta + ta2) / 2, (tb + tb2) / 2
+
+
+def float16_kernels(model, dev):
+    """Phase 20 (a): K1 at the three eval sites and K2-K4 at the three train
+    sites of the flagship shapes, float16 maps, each against its plain
+    version (the wrapper under `force_reference()`) on the same inputs,
+    timed, with its bound and, for K2-K4, the library call; then timed in
+    turns with its bf16 instance on the same points (the map and cotangent
+    cast to bf16). Returns {kernel: {err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}, the times summed over the sites."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    f16, bf16 = torch.float16, torch.bfloat16
+    ratios = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    stats = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                     bound_by=set(), library_ms=0.0)
+             for k in ("gather_fold", "patch_gather", "patch_scatter",
+                       "patch_corner_grads")}
+
+    def add(kname, err, t_k, t_p, t_b, by, t_l):
+        st = stats[kname]
+        st["err"] = max(st["err"], err)
+        st["ms"] += t_k
+        st["plain_ms"] += t_p
+        st["bound_ms"] += t_b
+        st["bound_by"].add(by)
+        st["library_ms"] = (None if t_l is None or st["library_ms"] is None
+                            else st["library_ms"] + t_l)
+
+    for name, fmap, pts, fold, outside in site_cases(model, gen, f16, dev):
+        kern = functools.partial(gk.patch_sample_fold, fmap, *pts, fold)
+
+        def plain():
+            with gk.force_reference():
+                return kern()
+
+        ok, err, tol = fold_ok(kern(), plain())
+        t_k = median_ms(kern)
+        t_p = median_ms(plain, reps=5, warmup=1)
+        t_b, by = bound_ms("gather_fold", fmap.shape, pts, fmap.element_size(),
+                           fold)
+        print(f"[20] K1 {name:9s} float16 map {tuple(fmap.shape)} "
+              f"K={pts[0].shape[1]} fold={fold} outside={outside:.3f}: "
+              f"max_abs_err={err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {t_b:.4f} ms "
+              f"({by}), share {t_b / t_k:.3f}; library: none")
+        check(ok, f"[20] K1 disagrees with its plain version at {name} float16")
+        add("gather_fold", err, t_k, t_p, t_b, by, None)
+        fmap_b = fmap.to(bf16)
+        t16, tb = in_turns(kern, lambda: gk.patch_sample_fold(fmap_b, *pts, fold))
+        ratios.append(t16 / tb)
+        print(f"[20] K1 {name:9s} in turns with bf16 (f16, bf16, bf16, f16): "
+              f"float16 {t16:.4f} ms, bf16 {tb:.4f} ms, ratio {t16 / tb:.3f}")
+        del fmap_b
+    for name, fmap, pts, g, outside in train_site_cases(model, gen, f16, dev):
+        shape = tuple(fmap.shape)
+        lib = library_ms(fmap, pts, g)
+        for kname, (kern, _) in patch_runs(fmap, pts, g).items():
+            def plain(kern=kern):
+                with gk.force_reference():
+                    return kern()
+
+            ok, err, detail, tol = compare(kname, kern(), plain(), f16)
+            t_k = median_ms(kern, reps=10, warmup=2)
+            t_p = median_ms(plain, reps=3, warmup=1)
+            t_b, by = bound_ms(kname, shape, pts, fmap.element_size())
+            t_l = lib[kname]
+            print(f"[20] {kname:18s} {name:9s} float16 map {shape} "
+                  f"K={pts[0].shape[1]} outside={outside:.3f}: max_abs_err "
+                  f"{detail} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {t_b:.4f} ms "
+                  f"({by}), share {t_b / t_k:.3f}, library "
+                  f"{'refused' if t_l is None else f'{t_l:.4f} ms'}")
+            check(ok, f"[20] {kname} disagrees with its plain version at "
+                      f"{name} float16")
+            add(kname, err, t_k, t_p, t_b, by, t_l)
+        fmap_b, g_b = fmap.to(bf16), g.to(bf16)
+        runs_b = patch_runs(fmap_b, pts, g_b)
+        for kname, (kern, _) in patch_runs(fmap, pts, g).items():
+            t16, tb = in_turns(kern, runs_b[kname][0])
+            ratios.append(t16 / tb)
+            print(f"[20] {kname:18s} {name:9s} in turns with bf16: float16 "
+                  f"{t16:.4f} ms, bf16 {tb:.4f} ms, ratio {t16 / tb:.3f}")
+        del fmap_b, g_b, runs_b
+    print(f"[20] float16 / bf16 time in turns over the 12 kernel sites: "
+          f"{min(ratios):.3f}-{max(ratios):.3f}, median "
+          f"{statistics.median(ratios):.3f}")
+    for st in stats.values():
+        st["bound_by"] = "/".join(sorted(st["bound_by"]))
+    return stats
+
+
+def phase_float16(cfg, dev, card):
+    """Phase 20: float16 maps (`model.trunk_dtype` and `decoder.gather_dtype`
+    float16, read through `config_kwargs`) at the flagship config's full
+    width, seeded random weights: (a) K1-K4 against their plain versions at
+    the flagship sites (`float16_kernels`); (b) F16_STEPS streaming steps
+    (K1 18 a step; step ms, device busy) and the last window decoded with
+    the kernels and with their plain versions (phase 5's bound); (c) one
+    train step with the kernels (K2 72, K3 and K4 36) and one with their
+    plain versions from equal weights, batch and draws (phase 9's bound).
+    Where the seeded weights overflow float16 on the kernel path and the
+    plain path alike, that is the configuration's property: the run prints
+    it and the kernels stay held at the op level by (a); an overflow on one
+    path only fails. Returns ((a)'s stats, the (K1, K2, K3, K4) launches of
+    (b)'s steps and (c)'s kernel step)."""
+    import copy
+
+    from racformer_tpu_torch.eval import StreamingEvaluator
+    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
+    from racformer_tpu_torch.ops import gather_kernel as gk
+    from racformer_tpu_torch.train import (Optimizer, make_draws,
+                                           make_train_step, split_microbatches)
+    from racformer_tpu_torch.train.__main__ import build, to_device
+
+    f16 = torch.float16
+    c16 = copy.deepcopy(cfg)
+    c16["model"]["trunk_dtype"] = "float16"
+    c16["decoder"]["gather_dtype"] = "float16"
+    kwargs = config_kwargs(c16)
+    check(kwargs["trunk_dtype"] == f16
+          and kwargs["decoder"]["gather_dtype"] == f16,
+          "[20] config_kwargs did not take the float16 overrides")
+    with torch.device(dev):
+        model = RaCFormer(**kwargs)
+    random_init_(model, torch.Generator().manual_seed(SEED)).eval()
+    stats = float16_kernels(model, dev)
+    layers = int(cfg["decoder"]["num_layers"])
+
+    # (b) the streaming step
+    frames = ring_frames(model, F16_STEPS + 1, 1536, SEED)
+    ev = StreamingEvaluator(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms, finite = [], True
+    for f in frames[:F16_STEPS]:
+        t0 = time.perf_counter()
+        out = ev.step(f, blocking=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(torch.isfinite(out["scores"]).all()
+                                 and torch.isfinite(out["bboxes"]).all())
+    l_eval = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(l_eval) == (18 * F16_STEPS, 0, 0, 0),
+          f"[20] float16 streaming launches {l_eval} in {F16_STEPS} steps, "
+          f"expected K1 {18 * F16_STEPS} and no other")
+    feat_cat, lss, radar, l2i, ts = cache = ev.cache
+    check(feat_cat.dtype == f16,
+          f"[20] the cached image pyramid is {feat_cat.dtype}, expected float16")
+    tops = [t.float().abs().max().item() for t in (feat_cat, lss, radar)]
+    busy, _ = device_split(lambda: ev.step(frames[F16_STEPS], blocking=False), 1)
+    args = (feat_cat, lss, radar, l2i, ts[:, :1] - ts)
+    a = model.decode_window(*args)
+    with gk.force_reference():
+        b = model.decode_window(*args)
+    fin_a, fin_b = finite_outputs(a), finite_outputs(b)
+    steady = statistics.median(step_ms[1:])
+    print(f"[20] (b) float16 streaming step ({card}): {F16_STEPS} steps, "
+          f"steady {steady:.2f} ms (first {step_ms[0]:.2f}), device busy "
+          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / steady):.3f}), peak "
+          f"{peak / 2**30:.2f} GiB; K1 launches per step "
+          f"{l_eval[0] // F16_STEPS}; outputs finite {finite}; largest |value| "
+          f"of the float16 image pyramid {tops[0]:.4g}, of the cached float32 "
+          f"LSS BEV {tops[1]:.4g} and radar BEV {tops[2]:.4g}, which the "
+          f"decoder projects into its float16 value maps (float16 max "
+          f"{torch.finfo(f16).max:g})")
+    overflow = []
+    if fin_a and fin_b:
+        tol_cls, tol_box = head_bound(b["all_cls_scores"][-1],
+                                      b["all_bbox_preds"][-1])
+        e_cls = (a["all_cls_scores"][-1] - b["all_cls_scores"][-1]).abs().max().item()
+        e_box = (a["all_bbox_preds"][-1] - b["all_bbox_preds"][-1]).abs().max().item()
+        print(f"[20] (b) last window, K1 against its plain version: class "
+              f"logits max |d| {e_cls:.4g} (bound {tol_cls:.4g}), boxes max "
+              f"|d| {e_box:.4g} (bound {tol_box:.4g}, phase 5's)")
+        check(finite and e_cls <= tol_cls and e_box <= tol_box,
+              "[20] the float16 streaming step with K1 drifts from the plain "
+              "version, or its steps were not finite")
+    else:
+        check(not fin_a and not fin_b and not finite,
+              f"[20] float16 window finite with the kernels {fin_a}, with the "
+              f"plain versions {fin_b}, steps finite {finite}: one path only "
+              f"overflowed")
+        overflow.append("eval")
+        print(f"[20] (b) OVERFLOW: the seeded weights overflow float16 in the "
+              f"eval step with the kernels and with their plain versions alike "
+              f"(a property of the configuration, not of K1; K1 held at the op "
+              f"level in (a))")
+    del ev, a, b, args, cache, feat_cat, lss, radar, model
+    torch.cuda.empty_cache()
+
+    # (c) one train step with the kernels, one with their plain versions
+    tmodel, _, _, dataset, batch = build(c16, dev, SEED, 1000)
+    accum = int(cfg.get("accumulate_steps", 1))
+    tb = to_device(dataset.batch(list(range(batch))), dev)
+    opt = Optimizer(tmodel.named_parameters(), base_lr=0.0)
+    step = make_train_step(tmodel, opt, dict(cfg.get("depth", {})), accum)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    draws = [make_draws(tmodel, m, gen) for m in split_microbatches(tb, accum)]
+    state = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ma = step(tb, draws=draws)
+    torch.cuda.synchronize()
+    t_step = (time.perf_counter() - t0) * 1e3
+    l_train = launch_counts()
+    tpeak = torch.cuda.max_memory_allocated()
+    per = SITES * layers * accum
+    check(tuple(l_train) == (0, 2 * per, per, per),
+          f"[20] float16 train step launches {l_train}, expected "
+          f"{(0, 2 * per, per, per)}")
+    ga = grads_of(tmodel, ma)
+    fin_a = all(np.isfinite(float(v)) for v in ma.values()) and all(
+        bool(torch.isfinite(g).all()) for g in ga.values())
+    tmodel.load_state_dict(state)
+    before = launch_counts()
+    with gk.force_reference():
+        mb = step(tb, draws=draws)
+    check(launch_counts() == before, "[20] force_reference() launched a kernel")
+    gb = grads_of(tmodel, mb)
+    fin_b = all(np.isfinite(float(v)) for v in mb.values()) and all(
+        bool(torch.isfinite(g).all()) for g in gb.values())
+    print(f"[20] (c) float16 train step (batch {batch}, {accum} microbatches, "
+          f"{card}): {t_step:.2f} ms with the kernels (the first float16 step), "
+          f"peak {tpeak / 2**30:.2f} GiB; launches K2 {l_train[1]}, K3 "
+          f"{l_train[2]}, K4 {l_train[3]}; loss_total {float(ma['loss_total']):.6g}"
+          f" / {float(mb['loss_total']):.6g}, grad_norm "
+          f"{float(ma['grad_norm']):.6g} / {float(mb['grad_norm']):.6g} "
+          f"(kernels / plain versions)")
+    if fin_a and fin_b:
+        loss_rel, cos, rel = compare_steps(
+            "[20] (c) float16 train step, kernels vs plain versions:", ma, mb,
+            ga, gb)
+        check(loss_rel <= 1e-3 and cos >= 0.99 and rel <= 0.05,
+              "[20] the float16 train step with the kernels drifts from the "
+              "plain versions (phase 9's bound: losses 1e-3 relative, every "
+              "gradient's cosine >= 0.99, global relative gradient difference "
+              "<= 0.05)")
+    else:
+        check(not fin_a and not fin_b,
+              f"[20] float16 train step finite with the kernels {fin_a}, with "
+              f"the plain versions {fin_b}: one path only overflowed")
+        overflow.append("train")
+        print(f"[20] (c) OVERFLOW: the seeded weights overflow float16 in the "
+              f"train step with the kernels and with their plain versions "
+              f"alike (a property of the configuration, not of K2-K4; they "
+              f"are held at the op level in (a))")
+    del tmodel, dataset, tb, step, opt, state, ga, gb
+    torch.cuda.empty_cache()
+    launches = tuple(int(x) + int(y) for x, y in zip(l_eval, l_train))
+    print(f"[20] float16 launches on the main path: K1 {launches[0]}, K2 "
+          f"{launches[1]}, K3 {launches[2]}, K4 {launches[3]}; overflow: "
+          f"{', '.join(overflow) or 'none'}")
+    return stats, launches
+
+
 def flagship_model(dev):
     """The flagship config (read with runpy), the model's arguments and the
     model on `dev` with seeded random weights, in eval mode."""
@@ -3130,6 +3435,7 @@ def main(argv):
     remat_launches = phase_remat(cfg, dev, card)
     vod_launches = phase_vod(dev, card)
     head_launches = phase_head_dtype(cfg, dev, card)
+    f16_stats, f16_launches = phase_float16(cfg, dev, card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
@@ -3174,6 +3480,20 @@ def main(argv):
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",
                         "replaces": replaces, "launches": n + m,
+                        "max_abs_err": st["err"], "ms": st["ms"],
+                        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                        "bound_by": st["bound_by"],
+                        "library_ms": st["library_ms"]})
+    for (name, replaces), n in zip((
+            ("gather_fold", "racformer_tpu/ops/gather_kernel.py:187"),
+            ("patch_gather", "racformer_tpu/ops/gather_kernel.py:53"),
+            ("patch_scatter", "racformer_tpu/ops/scatter_kernel.py:47"),
+            ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
+            f16_launches):
+        st = f16_stats[name]
+        kernels.append({"name": f"{name}_float16", "route": "cuda",
+                        "source": f"racformer_tpu_torch/csrc/{name}.cu",
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": st["err"], "ms": st["ms"],
                         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                         "bound_by": st["bound_by"],

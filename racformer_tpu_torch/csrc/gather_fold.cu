@@ -61,7 +61,7 @@
 // Contract (the Python wrapper checks the first four and raises, and
 // allocates the output aligned): every array is contiguous, the map and the
 // output lie at 16-byte aligned addresses, C is a multiple of kVec (8 in
-// bf16, 4 in f32), K % fold == 0;
+// bf16 and f16, 4 in f32), K % fold == 0;
 // 0 <= row < R and 0 <= x0p <= Wp - 2 (the samplers guarantee it by
 // clamping the coordinates to [-PAD, W] before adding PAD; unchecked).
 
@@ -72,8 +72,9 @@ namespace {
 using namespace point_tiles;
 
 // Points each lane group keeps in flight (one fold group of the decoder's
-// fold = 4 in bf16, two in f32), and the blocks per SM asked of ptxas (2
-// caps a thread at 128 registers): chosen on the card, see the note above.
+// fold = 4 in bf16 and f16, two in f32), and the blocks per SM asked of ptxas (2
+// caps a thread at 128 registers): chosen on the card, see the note above;
+// float16 takes bf16's, whose lanes and bytes per point it shares.
 template <typename T>
 constexpr int kInFlight = sizeof(T) == 2 ? 4 : 8;
 template <typename T>
@@ -234,8 +235,8 @@ cudaError_t launch(const void* fused, const void* row, const void* x0p,
 
 }  // namespace
 
-// dtype: 0 = float32 map/output, 1 = bfloat16 map/output. Returns the CUDA
-// error code of the launch (0 = cudaSuccess).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 map/output. Returns the
+// CUDA error code of the launch (0 = cudaSuccess).
 extern "C" int racformer_gather_fold(int dtype, const void* fused,
                                      const void* row, const void* x0p,
                                      const void* wx, const void* wy,
@@ -250,6 +251,9 @@ extern "C" int racformer_gather_fold(int dtype, const void* fused,
     case 1:
       return launch<__nv_bfloat16>(fused, row, x0p, wx, wy, wl, out, s,
                                    map_stride, wp, c, k, fold, st);
+    case 2:
+      return launch<__half>(fused, row, x0p, wx, wy, wl, out, s, map_stride,
+                            wp, c, k, fold, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -171,7 +171,7 @@ cudaError_t launch(const void* fused, const void* g, const void* row,
 
 }  // namespace
 
-// dtype: 0 = float32 map and cotangent, 1 = bfloat16 map and cotangent; the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 map and cotangent; the
 // location gradients are float32. Returns the CUDA error code of the launch
 // (0 = cudaSuccess).
 extern "C" int racformer_patch_corner_grads(int dtype, const void* fused,
@@ -189,6 +189,9 @@ extern "C" int racformer_patch_corner_grads(int dtype, const void* fused,
     case 1:
       return launch<__nv_bfloat16>(fused, g, row, x0p, wx, wy, d_wx, d_wy, s,
                                    map_stride, wp, c, k, st);
+    case 2:
+      return launch<__half>(fused, g, row, x0p, wx, wy, d_wx, d_wy, s,
+                            map_stride, wp, c, k, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

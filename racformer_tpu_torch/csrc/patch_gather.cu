@@ -52,6 +52,7 @@ using namespace point_tiles;
 // site: in bf16 8 (0.3475 ms) beat 4 (0.3693); in f32 4 (0.7452) beat 8
 // (0.8067): with 8 a lane takes 208-218 registers against 122-126, one
 // block per SM instead of two, so no more bytes are in flight per SM.
+// float16 takes bf16's count: the same 16-bit lanes and bytes per point.
 template <typename T>
 constexpr int kInFlight = sizeof(T) == 2 ? 8 : 4;
 
@@ -145,8 +146,8 @@ cudaError_t launch(const void* fused, const void* row, const void* x0p,
 
 }  // namespace
 
-// dtype: 0 = float32 map/output, 1 = bfloat16 map/output. Returns the CUDA
-// error code of the launch (0 = cudaSuccess).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 map/output. Returns the
+// CUDA error code of the launch (0 = cudaSuccess).
 extern "C" int racformer_patch_gather(int dtype, const void* fused,
                                       const void* row, const void* x0p,
                                       const void* wx, const void* wy,
@@ -160,6 +161,9 @@ extern "C" int racformer_patch_gather(int dtype, const void* fused,
     case 1:
       return launch<__nv_bfloat16>(fused, row, x0p, wx, wy, out, s,
                                    map_stride, wp, c, k, st);
+    case 2:
+      return launch<__half>(fused, row, x0p, wx, wy, out, s, map_stride, wp,
+                            c, k, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

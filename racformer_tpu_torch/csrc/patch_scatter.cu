@@ -10,9 +10,11 @@
 //   dF[s, row, x0p + b, C + c] += h_b * bf16(g[c] * wy),    h_0 = 1 - wx, h_1 = wx
 //
 // into the gradient dF [S, R, Wp, 2C] of the y-fused map, accumulated in f32
-// and returned in g's dtype (the map's), rounded once. The two y-weighted
-// cotangents are rounded to bf16 before the x-weights, as the JAX backward
-// rounds its fused cotangent operand, so both packages sum the same terms.
+// and returned in g's dtype (the map's: f32, bf16 or f16), rounded once. The
+// two y-weighted cotangents are rounded to bf16 before the x-weights,
+// whatever the map dtype, as the JAX backward rounds its fused cotangent
+// operand (`.astype(jnp.bfloat16)`, then the sum cast to the map dtype), so
+// both packages sum the same terms.
 //
 // What bounds it: memory. The least traffic is the output map, written once
 // in its dtype (1.17 GB in bf16 at the image site [32, 792, 180, 128]), plus
@@ -79,6 +81,7 @@
 
 #include <cub/block/block_scan.cuh>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,6 +105,30 @@ __device__ __forceinline__ float2 load2(const float* p) {
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+
+__device__ __forceinline__ float2 load2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+
+// Two f32 values rounded to a 16-bit map dtype T, as one 32-bit pair.
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type of(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
+  }
+};
+
+template <>
+struct Pair<__half> {
+  using type = __half2;
+  static __device__ __forceinline__ type of(float x, float y) {
+    return __floats2half2_rn(x, y);
+  }
+};
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -232,17 +259,15 @@ __device__ __forceinline__ void store_row(float* out, float* acc, int n) {
   }
 }
 
-__device__ __forceinline__ void store_row(__nv_bfloat16* out, float* acc,
-                                          int n) {  // n is a multiple of 8
+template <typename T>  // bf16 or f16; n is a multiple of 8
+__device__ __forceinline__ void store_row(T* out, float* acc, int n) {
   float4* src = reinterpret_cast<float4*>(acc);
   uint4* dst = reinterpret_cast<uint4*>(out);
   for (int i = threadIdx.x; i < n / 8; i += blockDim.x) {
     const float4 a = src[2 * i], b = src[2 * i + 1];
     src[2 * i] = src[2 * i + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
-    __nv_bfloat162 h[4] = {__floats2bfloat162_rn(a.x, a.y),
-                           __floats2bfloat162_rn(a.z, a.w),
-                           __floats2bfloat162_rn(b.x, b.y),
-                           __floats2bfloat162_rn(b.z, b.w)};
+    typename Pair<T>::type h[4] = {Pair<T>::of(a.x, a.y), Pair<T>::of(a.z, a.w),
+                                   Pair<T>::of(b.x, b.y), Pair<T>::of(b.z, b.w)};
     dst[i] = *reinterpret_cast<const uint4*>(h);
   }
 }
@@ -491,8 +516,8 @@ __global__ void __launch_bounds__(kFinishThreads) finish_rows(
     if constexpr (sizeof(T) == 4) {
       reinterpret_cast<float4*>(dst)[i] = s;
     } else {
-      __nv_bfloat162 h[2] = {__floats2bfloat162_rn(s.x, s.y),
-                             __floats2bfloat162_rn(s.z, s.w)};
+      typename Pair<T>::type h[2] = {Pair<T>::of(s.x, s.y),
+                                     Pair<T>::of(s.z, s.w)};
       reinterpret_cast<uint2*>(dst)[i] = *reinterpret_cast<const uint2*>(h);
     }
   }
@@ -593,7 +618,7 @@ extern "C" int racformer_bucket_rows(const void* row, const void* x0p,
       static_cast<cudaStream_t>(stream)));
 }
 
-// dtype: 0 = float32, 1 = bfloat16, for g and the gradient map `out`
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16, for g and the gradient map `out`
 // [S, R, Wp, 2C] alike; slots holds ceil(S * K / 1024) f32 rows (kSpan).
 // Returns the CUDA error code of the first launch or call that failed
 // (0 = cudaSuccess).
@@ -613,6 +638,9 @@ extern "C" int racformer_patch_scatter(int dtype, const void* g,
       return launch<__nv_bfloat16>(g, row, x0p, wx, wy, counts, offsets,
                                    records, slots, out, s, rows, wp, c, k,
                                    st);
+    case 2:
+      return launch<__half>(g, row, x0p, wx, wy, counts, offsets, records,
+                            slots, out, s, rows, wp, c, k, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

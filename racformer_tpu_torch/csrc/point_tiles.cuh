@@ -4,11 +4,11 @@
 //
 // Each reads, for every point, the two adjacent columns x0p and x0p + 1 of
 // one fused row of the y-fused map F [S, R, Wp, 2C]: 4C contiguous values
-// (512 B in bf16 at C = 64). How they walk the points:
+// (512 B in bf16 or f16 at C = 64). How they walk the points:
 //
 //   * 16-byte loads. A group of lanes serves one point (K1: one output, its
 //     fold points in turn), each lane 16 bytes (kVec channels) of each of
-//     the four corner halves: 8 lanes in bf16, 16 in f32 cover 64 channels
+//     the four corner halves: 8 lanes in bf16 or f16, 16 in f32 cover 64 channels
 //     (kSpan); a wider C takes more passes. One warp load instruction reads
 //     32 / kPerPoint points' 128-byte runs.
 //   * A tile of 32 points per warp (K1: whole fold groups, at most 32
@@ -27,12 +27,13 @@
 // Contract (the Python wrappers check the first three and raise; they
 // allocate the outputs, aligned): every array is contiguous, the map and
 // any [S, K, C] input or output lie at 16-byte aligned addresses, C is a
-// multiple of kVec (8 in bf16, 4 in f32);
+// multiple of kVec (8 in bf16 and f16, 4 in f32);
 // 0 <= row < R and 0 <= x0p <= Wp - 2 (the samplers' clamp; unchecked).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,6 +82,17 @@ __device__ __forceinline__ void to_float<__nv_bfloat16>(const uint4& v,
   }
 }
 
+template <>
+__device__ __forceinline__ void to_float<__half>(const uint4& v, float* f) {
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __half22float2(h[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+
 // kVec f32 values rounded to T, as 16 bytes
 template <typename T>
 __device__ __forceinline__ uint4 from_float(const float* f);
@@ -97,6 +109,15 @@ __device__ __forceinline__ uint4 from_float<__nv_bfloat16>(const float* f) {
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return r;
+}
+
+template <>
+__device__ __forceinline__ uint4 from_float<__half>(const float* f) {
+  uint4 r;
+  __half2* h = reinterpret_cast<__half2*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
   return r;
 }
 

@@ -34,6 +34,10 @@ the port train driver's work dir (its newest checkpoint's weights and
 BatchNorm statistics). A JAX work dir of orbax checkpoints, or a pickle of
 JAX arrays, is refused: `scripts/jax_checkpoint_to_torch.py` converts it.
 Without a checkpoint the model has seeded random weights.
+
+Float32 runs in full float32: `main` turns TF32 off for matmuls and cuDNN
+convolutions and prints both flags (`utils.precision`). A nuScenes split is
+read with the config's `camera_types`, whose count must be `num_cams`.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import pickle
 import torch
 
 from ..tools.convert_weights import CONVERTER, NumpyOnlyUnpickler
-from ..utils import distributed
+from ..utils import distributed, pin_float32_precision
 
 
 def parse_args(argv=None):
@@ -76,6 +80,21 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def camera_types(cfg, model):
+    """The nuScenes cameras a config reads: its `camera_types` (the
+    front-only configs name three), else the reader's six. A ValueError
+    when their count is not the model's `num_cams`. (`val.py` and
+    `train.py` pass none, so the JAX package reads six cameras whatever
+    the config names.)"""
+    from ..data.nuscenes import DEFAULT_CAMERAS
+
+    cams = tuple(cfg.get("camera_types") or DEFAULT_CAMERAS)
+    if len(cams) != model.num_cams:
+        raise ValueError(f"camera_types names {len(cams)} cameras {list(cams)}"
+                         f", but model.num_cams is {model.num_cams}")
+    return cams
+
+
 def build_dataset(cfg, model, synthetic: bool, max_samples=None):
     """The val split: VoD, synthetic or nuScenes, as `val.py` chooses (and
     `train.py` for its in-training eval), capped at `max_samples`."""
@@ -100,7 +119,7 @@ def build_dataset(cfg, model, synthetic: bool, max_samples=None):
     return NuScenesRadarDataset(
         ann, num_frames=model.num_frames,
         frame_interval=int(cfg["data"]["val"].get("frame_interval", 6)),
-        image_hw=model.image_hw,
+        camera_types=camera_types(cfg, model), image_hw=model.image_hw,
         ida_cfg=dict(cfg["ida_aug"]) if cfg.get("ida_aug") else None,
         max_radar_points=cfg["radar"]["max_points"], max_gt=model.max_gt,
         training=False, max_samples=max_samples)
@@ -136,6 +155,7 @@ def main(argv=None):
     """Runs the evaluation; returns (preds, metrics) for callers in
     process (metrics is None without ground truth)."""
     args = parse_args(argv)
+    pin_float32_precision()
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("the eval driver needs a CUDA device (pass --device "
                          "cpu to run the plain versions on the CPU)")

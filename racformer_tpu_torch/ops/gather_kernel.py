@@ -37,7 +37,8 @@ LAUNCHES = 0  # kernel launches made by `patch_sample_fold` (K1)
 GATHER_LAUNCHES = 0  # kernel launches made by `patch_gather` (K2)
 CORNER_LAUNCHES = 0  # kernel launches made by `patch_corner_grads` (K4)
 _force_reference = False
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the map dtypes K1-K4 take, by the code their C entry points dispatch on
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @contextlib.contextmanager
@@ -100,7 +101,7 @@ def check_points(name, shape, row, x0p, wx, wy):
 def check_vector_loads(name, fused, *more):
     """Raise unless K1, K2 or K4 can read `fused` (and the [S, K, C] tensors
     `more`) 16 bytes per lane: C a multiple of the channels in 16 bytes (8
-    in bf16, 4 in f32) and every pointer 16-byte aligned (see
+    in bf16 and f16, 4 in f32) and every pointer 16-byte aligned (see
     `csrc/point_tiles.cuh`; outputs come from the caching allocator, which
     aligns them)."""
     vec = 16 // fused.element_size()
@@ -165,9 +166,9 @@ def patch_sample_fold_reference(fused, row, x0p, wx, wy, wl, fold):
 
 def patch_sample_fold(fused, row, x0p, wx, wy, wl, fold):
     """K1: see `patch_sample_fold_reference` for the contract. On CUDA the
-    inputs must be contiguous, the map float32 or bfloat16 at a 16-byte
-    aligned address with C a multiple of 8 (bf16) or 4 (f32), row / x0p
-    int32 and wx / wy / wl float32; indices must lie in the map
+    inputs must be contiguous, the map float32, bfloat16 or float16 at a
+    16-byte aligned address with C a multiple of 8 (bf16, f16) or 4 (f32),
+    row / x0p int32 and wx / wy / wl float32; indices must lie in the map
     (0 <= row < R, 0 <= x0p <= Wp - 2), which the samplers guarantee by
     clamping."""
     global LAUNCHES
@@ -214,9 +215,9 @@ def patch_gather_reference(fused, row, x0p, wx, wy):
 
 def patch_gather(fused, row, x0p, wx, wy):
     """K2: see `patch_gather_reference`. On CUDA the inputs must be
-    contiguous, the map float32 or bfloat16 at a 16-byte aligned address
-    with C a multiple of 8 (bf16) or 4 (f32), row / x0p int32 and wx / wy
-    float32, with 0 <= row < R and 0 <= x0p <= Wp - 2."""
+    contiguous, the map float32, bfloat16 or float16 at a 16-byte aligned
+    address with C a multiple of 8 (bf16, f16) or 4 (f32), row / x0p int32
+    and wx / wy float32, with 0 <= row < R and 0 <= x0p <= Wp - 2."""
     global GATHER_LAUNCHES
     check_points("patch_gather", fused.shape, row, x0p, wx, wy)
     if use_reference(fused):

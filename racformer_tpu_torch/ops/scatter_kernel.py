@@ -33,7 +33,7 @@ _SPAN = 1024  # points per tile of the accumulation: the kernel's kSpan
 def _fused_cotangent(g, wy):
     """[S*K, 2C] f32: the cotangent split over the two fused rows,
     g * (1 - wy) | g * wy, rounded to bf16 as the JAX backward's kernel
-    operand is."""
+    operand is, whatever g's dtype (float16 too)."""
     C = g.shape[-1]
     g32 = g.reshape(-1, C).float()
     wyf = wy.reshape(-1, 1).float()
@@ -116,9 +116,11 @@ def bucket_by_row(row, x0p, wx, wy, R):
 
 
 def patch_scatter(g, row, x0p, wx, wy, map_shape):
-    """K3: see `patch_scatter_reference`. On CUDA g is float32 or bfloat16,
-    row / x0p int32, wx / wy float32, all contiguous, with 0 <= row < R and
-    0 <= x0p <= Wp - 2; the result has g's dtype."""
+    """K3: see `patch_scatter_reference`. On CUDA g is float32, bfloat16 or
+    float16 (its terms rounded to bf16 before the f32 sums whatever its
+    dtype, as in the plain version), row / x0p int32, wx / wy float32, all
+    contiguous, with 0 <= row < R and 0 <= x0p <= Wp - 2; the result has
+    g's dtype."""
     global LAUNCHES
     map_shape = tuple(map_shape)
     gk.check_points("patch_scatter", map_shape, row, x0p, wx, wy)

@@ -42,6 +42,11 @@ cover the global batch. Rank 0 alone writes the logs, the checkpoints and
 agree. The in-training eval is the offline protocol sharded over the ranks
 (`evaluation.mode=streaming` falls back to it, as `train.py` does with
 several processes).
+
+Float32 runs in full float32: `main` turns TF32 off for matmuls and cuDNN
+convolutions and prints both flags (`utils.precision`). The maps' dtypes
+come from the config (`model.trunk_dtype`, `decoder.gather_dtype`:
+float32, bfloat16 or float16, each with a kernel instance on the card).
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ import torch
 from ..config import Config
 from ..data import SyntheticDataset
 from ..model import RaCFormer, config_kwargs, random_init_
-from ..utils import distributed
+from ..utils import distributed, pin_float32_precision
 from .hooks import DepthWeightCurriculum
 from .hostdata import epoch_order, host_batch_indices
 from .optim import Optimizer
@@ -153,7 +158,8 @@ def train_dataset(cfg, model: RaCFormer, batch: int, synthetic: bool,
                   seed: int):
     """The training set `train.py` builds: synthetic when asked for or when
     the config's `data.train.ann_file` is missing, else VoD or nuScenes
-    (training=True: random sweep interval, image and BEV augmentation)."""
+    (training=True: random sweep interval, image and BEV augmentation;
+    nuScenes reads the config's `camera_types`)."""
     ann = cfg["data"]["train"]["ann_file"]
     if synthetic or not os.path.exists(ann):
         return synthetic_dataset(cfg, model, batch)
@@ -166,12 +172,13 @@ def train_dataset(cfg, model: RaCFormer, batch: int, synthetic: bool,
             max_radar_points=cfg["radar"]["max_points"],
             max_gt=model.max_gt, training=True)
     from ..data import NuScenesRadarDataset
+    from ..eval.__main__ import camera_types
 
     return NuScenesRadarDataset(
         ann, num_frames=model.num_frames,
         frame_interval=tuple(cfg["data"]["train"].get("frame_interval",
                                                       (4, 8))),
-        image_hw=model.image_hw,
+        camera_types=camera_types(cfg, model), image_hw=model.image_hw,
         ida_cfg=dict(cfg["ida_aug"]) if cfg.get("ida_aug") else None,
         bev_aug_cfg=dict(cfg["bev_aug"]) if cfg.get("bev_aug") else None,
         max_radar_points=cfg["radar"]["max_points"], max_gt=model.max_gt,
@@ -263,6 +270,7 @@ def main(argv=None):
     ms, each checkpoint save and in-training eval, the model and the last
     eval's predictions."""
     args = parse_args(argv)
+    pin_float32_precision()
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("the train driver needs a CUDA device (pass --device "
                          "cpu to run the plain versions on the CPU)")

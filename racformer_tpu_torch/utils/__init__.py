@@ -2,3 +2,4 @@
 `racformer_tpu/utils/`)."""
 
 from .logging import MetricLogger, backup_code, init_logging
+from .precision import pin_float32_precision

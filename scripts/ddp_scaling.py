@@ -4,7 +4,9 @@ of the machine, with the scaling between the two:
 
     python3 scripts/ddp_scaling.py
 
-It prints the card's name and power limit, builds the kernels (phase 2),
+It prints the card's name and power limit, turns TF32 off and prints both
+flags (phase 1, `racformer_tpu_torch/utils/precision.py`, as the drivers
+it runs do in every rank), builds the kernels (phase 2),
 runs the train driver under torchrun (phase 15) and the eval driver's
 offline and 4-stream protocols under torchrun (phase 16) at each world,
 and prints each world's train samples/s and eval rates against world 1's.

@@ -1,8 +1,9 @@
 """Tests of the port's CUDA kernels that need an NVIDIA GPU: K1
 (`csrc/gather_fold.cu`) and the training samplers' K2-K4
 (`csrc/patch_gather.cu`, `patch_scatter.cu`, `patch_corner_grads.cu`), each
-against its plain PyTorch version, plus `force_reference()` routing and the
-wrappers' rejection of inputs the kernels do not take. Without a GPU they
+against its plain PyTorch version in each map dtype (float32, bfloat16,
+float16), plus `force_reference()` routing and the wrappers' rejection of
+inputs the kernels do not take. Without a GPU they
 skip. They import no JAX, so on the card they run without the repository's
 conftest:
 
@@ -13,6 +14,15 @@ import pytest
 import torch
 
 from racformer_tpu_torch.ops import gather_kernel
+
+# the map dtypes of K1-K4: bf16 is the main path's, float16 a config's choice
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def rounding_tol(dtype):
+    """The tolerance for one output rounding to a 16-bit dtype on each side:
+    1e-2 for bf16 (2^-7 steps), scaled by float16's epsilon (2^-10)."""
+    return 1e-2 * torch.finfo(dtype).eps / torch.finfo(torch.bfloat16).eps
 
 
 @pytest.fixture
@@ -63,7 +73,7 @@ def _fold_layout(args, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("fold,C,K,layout", [
     (1, 64, 4000, "uniform"), (4, 64, 4000, "uniform"),
     (5, 128, 4000, "uniform"), (3, 64, 3999, "uniform"),
@@ -88,9 +98,10 @@ def test_kernel_matches_plain(cuda, dtype, fold, C, K, layout):
         assert not want.any() and not got.any()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
-    else:  # one bf16 output rounding plus reordered f32 sums
-        bound = 1e-2 * want.float().abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+    else:  # one 16-bit output rounding plus reordered f32 sums
+        tol = rounding_tol(dtype)
+        bound = tol * want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=bound)
 
 
@@ -109,7 +120,8 @@ def test_force_reference_routes_to_plain(cuda):
 def test_wrapper_rejects_bad_inputs(cuda):
     fused, row, x0p, wx, wy, wl = _inputs(cuda, torch.float32)
     with pytest.raises(TypeError):
-        gather_kernel.patch_sample_fold(fused.half(), row, x0p, wx, wy, wl, 4)
+        gather_kernel.patch_sample_fold(fused.double(), row, x0p, wx, wy, wl,
+                                        4)
     with pytest.raises(TypeError):
         gather_kernel.patch_sample_fold(fused, row.long(), x0p, wx, wy, wl, 4)
     with pytest.raises(ValueError):
@@ -140,13 +152,13 @@ def _points(dev, dtype, S=3, R=40, Wp=36, C=64, K=4096, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C,K", [(64, 4000), (128, 777), (64, 30000),
                                  (16, 3000), (32, 2000)])
 def test_patch_kernels_match_plain(cuda, dtype, C, K):
     """K2, K3 and K4 against their plain versions. f32: the same f32
     arithmetic up to the order of the sums (K3 sums each column's terms in
-    bucket order); bf16: one output rounding in K2 and K3, reordered f32
+    bucket order); bf16 and f16: one output rounding in K2 and K3, reordered f32
     sums in K3 / K4. C = 16 and 32 (embed_dims 64 and 128 at 4 groups) leave
     lanes of K3's warps without a channel pair."""
     from racformer_tpu_torch.ops import scatter_kernel
@@ -169,8 +181,9 @@ def test_patch_kernels_match_plain(cuda, dtype, C, K):
     if dtype == torch.float32:
         torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
     else:
-        bound = 1e-2 * want.float().abs().max().item()
-        torch.testing.assert_close(out.float(), want.float(), rtol=1e-2,
+        tol = rounding_tol(dtype)
+        bound = tol * want.float().abs().max().item()
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                    atol=bound)
     _assert_map_grad_close(dmap, want_map)
     for got, ref in ((dwx, want_wx), (dwy, want_wy)):
@@ -181,9 +194,10 @@ def test_patch_kernels_match_plain(cuda, dtype, C, K):
 def _assert_map_grad_close(got, want):
     """K3 against its plain version. Both sum the same f32 terms, in another
     order (K3's register and tile sums), and round the sum to the map dtype
-    once. f32: 1e-5 of max(1, max|want|). bf16: the two f32 sums may round
-    to neighbouring bf16 values, one bf16 step apart, at most 2^-7 |want|,
-    plus 1e-5 max|want| where terms cancel to near zero."""
+    once. f32: 1e-5 of max(1, max|want|). bf16 and f16: the two f32 sums
+    may round to neighbouring values, one step apart, at most eps |want|
+    (2^-7 bf16, 2^-10 f16), plus 1e-5 max|want| where terms cancel to near
+    zero."""
     assert got.dtype == want.dtype and got.shape == want.shape
     dtype = want.dtype
     got, want = got.float(), want.float()
@@ -192,7 +206,8 @@ def _assert_map_grad_close(got, want):
     if dtype == torch.float32:
         assert err.max().item() <= 1e-5 * max(1.0, top)
     else:
-        assert bool((err <= 2.0**-7 * want.abs() + 1e-5 * top).all())
+        eps = torch.finfo(dtype).eps
+        assert bool((err <= eps * want.abs() + 1e-5 * top).all())
 
 
 def _edge_points(dev, dtype, case, S=3, R=40, Wp=36, C=64, K=5000):
@@ -213,7 +228,7 @@ def _edge_points(dev, dtype, case, S=3, R=40, Wp=36, C=64, K=5000):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case,K", [("one_row", 5000), ("all_outside", 5000),
                                     ("empty_rows", 5000), ("hot_column", 5000),
                                     ("ragged", 1),
@@ -245,7 +260,7 @@ def test_patch_scatter_edge_cases(cuda, dtype, case, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_patch_scatter_is_repeatable(cuda, dtype):
     """K3 adds without atomics: each accumulator element has one owner that
     adds its terms in the (stable) bucket order, and a hot row's tile pieces
@@ -262,7 +277,7 @@ def test_patch_scatter_is_repeatable(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,K,C", [(1, 1, 64), (3, 31, 64), (2, 32, 64),
                                    (3, 33, 64), (1, 1057, 128), (2, 77, 8),
                                    (2, 45, 24), (3, 70, 72), (8, 100000, 64)])
@@ -287,8 +302,9 @@ def test_gather_kernels_tiling_tails(cuda, dtype, S, K, C):
         if dtype == torch.float32:
             torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
         else:
-            bound = 1e-2 * ref.float().abs().max().item()
-            torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+            tol = rounding_tol(dtype)
+            bound = tol * ref.float().abs().max().item()
+            torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                        atol=bound)
     for got, ref in zip((dwx, dwy), gather_kernel.patch_corner_grads_reference(
             fused, g, row, x0p, wx, wy)):
@@ -297,11 +313,11 @@ def test_gather_kernels_tiling_tails(cuda, dtype, S, K, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_gather_kernels_refuse_what_16_byte_loads_cannot_take(cuda, dtype):
     """K1, K2 and K4 read 16 bytes per lane: a contiguous map or cotangent
     view at a storage offset that is not 16-byte aligned, or a C that is not
-    a multiple of 16 bytes' channels (8 bf16, 4 f32), raises rather than
+    a multiple of 16 bytes' channels (8 bf16 or f16, 4 f32), raises rather than
     falling back, and launches nothing."""
     fused, row, x0p, wx, wy, g = _points(cuda, dtype, K=100)
     wl = torch.randn(row.shape, device=cuda)
@@ -320,7 +336,7 @@ def test_gather_kernels_refuse_what_16_byte_loads_cannot_take(cuda, dtype):
     g_shifted = g_shifted.view(g.shape).copy_(g)
     with pytest.raises(ValueError, match="16-byte aligned"):
         gather_kernel.patch_corner_grads(fused, g_shifted, row, x0p, wx, wy)
-    C = 60 if dtype == torch.bfloat16 else 62  # even, not a multiple of 8 / 4
+    C = 62 if dtype == torch.float32 else 60  # even, not a multiple of 4 / 8
     narrow, row, x0p, wx, wy, g = _points(cuda, dtype, C=C, K=100)
     with pytest.raises(ValueError, match="multiple of"):
         gather_kernel.patch_sample_fold(narrow, row, x0p, wx, wy, wl, 4)
@@ -333,7 +349,7 @@ def test_gather_kernels_refuse_what_16_byte_loads_cannot_take(cuda, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_corner_grads_are_repeatable(cuda, dtype):
     """K4 sums each point's channels in a fixed order (per lane, then the
     lane group's butterfly) without atomics: two runs are bitwise equal."""
@@ -377,7 +393,7 @@ def test_patch_force_reference_and_bad_inputs(cuda):
     assert (gather_kernel.GATHER_LAUNCHES, scatter_kernel.LAUNCHES,
             gather_kernel.CORNER_LAUNCHES) == counts
     with pytest.raises(TypeError):
-        gather_kernel.patch_gather(fused.half(), row, x0p, wx, wy)
+        gather_kernel.patch_gather(fused.double(), row, x0p, wx, wy)
     with pytest.raises(TypeError):
         scatter_kernel.patch_scatter(g, row.long(), x0p, wx, wy, fused.shape)
     with pytest.raises(ValueError):

@@ -14,7 +14,11 @@ the only width at which the JAX custom VJP is taken.
 Tolerances, relative to each tensor's max |value|: float32 1e-5 (the same
 arithmetic summed in another order); bfloat16 2e-2 (the JAX forward rounds
 its x-lerp to bf16 before the y-mix, the port rounds once; the map
-gradients pass through bf16 additions in both).
+gradients pass through bf16 additions in both); float16 2.5e-3, bfloat16's
+scaled by the two types' epsilons (2^-10 / 2^-7): the same roundings one
+float16 step wide. In float16 both packages still round the map
+gradient's cotangent terms to bf16 before their f32 sums (the JAX custom
+VJP's `.astype(jnp.bfloat16)`), then cast the sum to float16.
 """
 
 import jax
@@ -30,13 +34,19 @@ from racformer_tpu_torch.ops.bilinear import (PAD, corner_coords, patch_sample,
                                               sampler_ready)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2),
+          "float16": (jnp.float16, torch.float16, 2.5e-3)}
 
 
 def close(got, want, tol, name):
+    """got within tol of want's max |value|; prints the deviation
+    relative to it (`-s`)."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     bound = tol * max(np.abs(want).max(), 1e-6)
+    dev = np.abs(got - want).max() * tol / bound
+    print(f"{name}: largest deviation {dev:.3g} of the largest |value| "
+          f"(tolerance {tol:g})")
     np.testing.assert_allclose(got, want, rtol=tol, atol=bound, err_msg=name)
 
 

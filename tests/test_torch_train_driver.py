@@ -396,7 +396,8 @@ def test_nuscenes_training_set_as_train_py(tmp_path, monkeypatch):
         torch.set_num_threads(threads)
     cfg = driver.Config.fromfile(str(CONFIG)).merge_override(over)
     assert seen == [(pkl, dict(
-        num_frames=2, frame_interval=(4, 8), image_hw=(64, 128),
+        num_frames=2, frame_interval=(4, 8),
+        camera_types=port_nuscenes.DEFAULT_CAMERAS, image_hw=(64, 128),
         ida_cfg=dict(cfg["ida_aug"]), bev_aug_cfg=dict(cfg["bev_aug"]),
         max_radar_points=64, max_gt=8, training=True, seed=3))]
     assert result["last_step"] == 1
