@@ -24,9 +24,9 @@ Phases, each printed as it runs; any failure exits non-zero:
      (one output per slab, a ragged tile, folds 1, 3, 5 and 33, the last
      column and row, every point on the zero border, zero weights, the
      clustered points);
-  4. the streaming eval path: the flagship model of
-     racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py with seeded
-     random weights, fed seeded synthetic ring-camera frames through
+  4. the streaming eval path: the flagship model of the port's config
+     racformer_tpu_torch/configs/racformer_r50_nuimg_704x256_f8.py with
+     seeded random weights, fed seeded synthetic ring-camera frames through
      `StreamingEvaluator.step`; K1 must launch 18 times per step (3 sites x 6
      decoder iterations); K1 on one step's own inputs at each site (their
      alignment, against the plain version, timed, the distinct-column
@@ -73,7 +73,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      1 over 3 samples of the port's SyntheticDataset at full width; samples/s,
      finite decoded boxes, 18 K1 launches per sample;
  13. (run last) the eval driver `python -m racformer_tpu_torch.eval`, in
-     process, on a split it writes in the nuScenes info layout (4 scenes x 3
+     process, on a split it writes in the nuScenes info layout (4 scenes x 2
      keyframes, 6 cameras of 1600x900 JPEG, sweeps, radar, GT) in the three
      protocols (--streaming --streams 4, --streaming, offline): each prints
      its samples/s and the metrics; the 4-stream and single-stream
@@ -128,7 +128,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      and gradients (from the same seeded weights) against full's within
      phase 9's bound. A policy that does not fit in the card's memory fails
      the run.
- 18. (run last) the VoD config (racformer_tpu/configs/racformer_vod.py:
+ 18. (run last) the VoD config (racformer_tpu_torch/configs/racformer_vod.py:
      1 camera, 1 frame, Q = 600, 3 classes) unreduced, on a split it writes
      in the KITTI-format VoD layout (8 frames of 1936x1216 JPEG with the
      VoD camera's P2, radar .bin files, GT with DontCare): the train driver
@@ -191,9 +191,28 @@ Phases, each printed as it runs; any failure exits non-zero:
      overflow float16 on both paths of (b) or (c), the run prints it and
      goes on (the kernels are held at the op level in (a)); an overflow on
      one path fails.
+ 21. (run last) the fork's front-only configuration unreduced (the port's
+     copy of racformer_r50_nuimg_704x256_f8_3cam_3rad.py: 3 front cameras,
+     3 radars, 8 frames, 256x704, Q = 900, C = 256, 6 layers, D = 96, BEV
+     128^2, `eval_front_only`), seeded random weights: (a) K1 at its three
+     eval sites and K2-K4 at its three train sites (the image map of 3 x
+     rcat rows), bf16 maps, against their plain versions at phases 3's and
+     7's tolerances, each with its ms, plain ms, bound, share and library
+     call; (b) 5 streaming steps (K1 18 a step; step ms, device busy, idle
+     share, peak) and the last window against K1's plain version (phase
+     5's bound); (c) one train step (batch 2 in 2 microbatches; K2 / K3 / K4
+     72 / 36 / 36) against one with the plain versions (phase 9's bound),
+     its ms and peak; (d) the eval driver with the _mini config on phase
+     13's split (its reader takes the three front cameras of six),
+     --streaming and offline: finite predictions, the eval line and the
+     metrics, K1 18 a sample, and the front-only filter acting (the GT
+     boxes the metrics count with the filter, fewer than without and more
+     than none); (e) the train driver 2 steps (one epoch of 4 keyframes) on
+     that split with an in-training front-only eval of 2 samples: finite
+     losses, launches per step as (c), a verified checkpoint.
 The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
-13, 14, 16, 18 and 19, the K2-K4 entries theirs on phases 8, 14, 15, 17,
-18 and 19,
+13, 14, 16, 18, 19 and 21, the K2-K4 entries theirs on phases 8, 14, 15,
+17, 18, 19 and 21,
 each counted from 0 just before the phase's run (phases 15 and 16 count in
 their processes and report back, summed over the ranks); the four
 `*_float16` entries hold phase 20's float16 runs: times, bounds and errors
@@ -206,6 +225,7 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -222,7 +242,7 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
+CONFIG = REPO / "racformer_tpu_torch" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
 SEED = 0
 STEPS = 12
 OUTSIDE_SHARE = 0.2
@@ -1077,7 +1097,7 @@ def phase_offline(model, dev):
 NUSC_CAMS = (("CAM_FRONT", 0.0), ("CAM_FRONT_RIGHT", -55.0),
              ("CAM_FRONT_LEFT", 55.0), ("CAM_BACK", 180.0),
              ("CAM_BACK_LEFT", 110.0), ("CAM_BACK_RIGHT", -110.0))
-NUSC_SCENES, NUSC_SAMPLES = 4, 3
+NUSC_SCENES, NUSC_SAMPLES = 4, 2
 
 
 def write_nuscenes_split(root, name="nuscenes_infos_val_sweep.pkl"):
@@ -2489,7 +2509,7 @@ def phase_remat(cfg, dev, card):
     return tuple(int(x) for x in totals)
 
 
-VOD_CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_vod.py"
+VOD_CONFIG = REPO / "racformer_tpu_torch" / "configs" / "racformer_vod.py"
 VOD_SAMPLES = 8  # one epoch of 4 train steps at the config's batch 2
 # the VoD smoke's epochs here: 10 of the original's 40 (60 of its 240
 # steps, ~1 s each on the card; the tool's CLI runs all 40); the loss's
@@ -3117,19 +3137,20 @@ def in_turns(a, b, reps=10):
     return (ta + ta2) / 2, (tb + tb2) / 2
 
 
-def float16_kernels(model, dev):
-    """Phase 20 (a): K1 at the three eval sites and K2-K4 at the three train
-    sites of the flagship shapes, float16 maps, each against its plain
-    version (the wrapper under `force_reference()`) on the same inputs,
-    timed, with its bound and, for K2-K4, the library call; then timed in
-    turns with its bf16 instance on the same points (the map and cotangent
-    cast to bf16). Returns {kernel: {err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}}, the times summed over the sites."""
+def site_kernels(model, dev, dtype, tag, seed, turns_with=None):
+    """K1 at the three eval sites and K2-K4 at the three train sites of
+    `model`'s shapes, `dtype` maps, each against its plain version (the
+    wrapper under `force_reference()`) on the same inputs at phases 3's and
+    7's tolerances (scaled to the dtype's epsilon), timed, with its bound
+    and, for K2-K4, the library call; with `turns_with`, also timed in
+    turns with its instance of that dtype on the same points (the map and
+    cotangent cast). Returns {kernel: {err, ms, plain_ms, bound_ms,
+    bound_by, library_ms}}, the times summed over the sites."""
     from racformer_tpu_torch.ops import gather_kernel as gk
 
-    f16, bf16 = torch.float16, torch.bfloat16
     ratios = []
-    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    other = str(turns_with).removeprefix("torch.")
+    gen = torch.Generator(device=dev).manual_seed(seed)
     stats = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                      bound_by=set(), library_ms=0.0)
              for k in ("gather_fold", "patch_gather", "patch_scatter",
@@ -3145,7 +3166,7 @@ def float16_kernels(model, dev):
         st["library_ms"] = (None if t_l is None or st["library_ms"] is None
                             else st["library_ms"] + t_l)
 
-    for name, fmap, pts, fold, outside in site_cases(model, gen, f16, dev):
+    for name, fmap, pts, fold, outside in site_cases(model, gen, dtype, dev):
         kern = functools.partial(gk.patch_sample_fold, fmap, *pts, fold)
 
         def plain():
@@ -3157,20 +3178,22 @@ def float16_kernels(model, dev):
         t_p = median_ms(plain, reps=5, warmup=1)
         t_b, by = bound_ms("gather_fold", fmap.shape, pts, fmap.element_size(),
                            fold)
-        print(f"[20] K1 {name:9s} float16 map {tuple(fmap.shape)} "
+        print(f"{tag} K1 {name:9s} {dtype} map {tuple(fmap.shape)} "
               f"K={pts[0].shape[1]} fold={fold} outside={outside:.3f}: "
               f"max_abs_err={err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; "
               f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {t_b:.4f} ms "
               f"({by}), share {t_b / t_k:.3f}; library: none")
-        check(ok, f"[20] K1 disagrees with its plain version at {name} float16")
+        check(ok, f"{tag} K1 disagrees with its plain version at {name} {dtype}")
         add("gather_fold", err, t_k, t_p, t_b, by, None)
-        fmap_b = fmap.to(bf16)
-        t16, tb = in_turns(kern, lambda: gk.patch_sample_fold(fmap_b, *pts, fold))
-        ratios.append(t16 / tb)
-        print(f"[20] K1 {name:9s} in turns with bf16 (f16, bf16, bf16, f16): "
-              f"float16 {t16:.4f} ms, bf16 {tb:.4f} ms, ratio {t16 / tb:.3f}")
-        del fmap_b
-    for name, fmap, pts, g, outside in train_site_cases(model, gen, f16, dev):
+        if turns_with is not None:
+            fmap_o = fmap.to(turns_with)
+            t_a, t_o = in_turns(kern, lambda: gk.patch_sample_fold(
+                fmap_o, *pts, fold))
+            ratios.append(t_a / t_o)
+            print(f"{tag} K1 {name:9s} in turns with {other}: {dtype} "
+                  f"{t_a:.4f} ms, {other} {t_o:.4f} ms, ratio {t_a / t_o:.3f}")
+            del fmap_o
+    for name, fmap, pts, g, outside in train_site_cases(model, gen, dtype, dev):
         shape = tuple(fmap.shape)
         lib = library_ms(fmap, pts, g)
         for kname, (kern, _) in patch_runs(fmap, pts, g).items():
@@ -3178,139 +3201,98 @@ def float16_kernels(model, dev):
                 with gk.force_reference():
                     return kern()
 
-            ok, err, detail, tol = compare(kname, kern(), plain(), f16)
+            ok, err, detail, tol = compare(kname, kern(), plain(), dtype)
             t_k = median_ms(kern, reps=10, warmup=2)
             t_p = median_ms(plain, reps=3, warmup=1)
             t_b, by = bound_ms(kname, shape, pts, fmap.element_size())
             t_l = lib[kname]
-            print(f"[20] {kname:18s} {name:9s} float16 map {shape} "
+            print(f"{tag} {kname:18s} {name:9s} {dtype} map {shape} "
                   f"K={pts[0].shape[1]} outside={outside:.3f}: max_abs_err "
                   f"{detail} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
                   f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {t_b:.4f} ms "
                   f"({by}), share {t_b / t_k:.3f}, library "
                   f"{'refused' if t_l is None else f'{t_l:.4f} ms'}")
-            check(ok, f"[20] {kname} disagrees with its plain version at "
-                      f"{name} float16")
+            check(ok, f"{tag} {kname} disagrees with its plain version at "
+                      f"{name} {dtype}")
             add(kname, err, t_k, t_p, t_b, by, t_l)
-        fmap_b, g_b = fmap.to(bf16), g.to(bf16)
-        runs_b = patch_runs(fmap_b, pts, g_b)
-        for kname, (kern, _) in patch_runs(fmap, pts, g).items():
-            t16, tb = in_turns(kern, runs_b[kname][0])
-            ratios.append(t16 / tb)
-            print(f"[20] {kname:18s} {name:9s} in turns with bf16: float16 "
-                  f"{t16:.4f} ms, bf16 {tb:.4f} ms, ratio {t16 / tb:.3f}")
-        del fmap_b, g_b, runs_b
-    print(f"[20] float16 / bf16 time in turns over the 12 kernel sites: "
-          f"{min(ratios):.3f}-{max(ratios):.3f}, median "
-          f"{statistics.median(ratios):.3f}")
+        if turns_with is not None:
+            fmap_o, g_o = fmap.to(turns_with), g.to(turns_with)
+            runs_o = patch_runs(fmap_o, pts, g_o)
+            for kname, (kern, _) in patch_runs(fmap, pts, g).items():
+                t_a, t_o = in_turns(kern, runs_o[kname][0])
+                ratios.append(t_a / t_o)
+                print(f"{tag} {kname:18s} {name:9s} in turns with {other}: "
+                      f"{dtype} {t_a:.4f} ms, {other} {t_o:.4f} ms, ratio "
+                      f"{t_a / t_o:.3f}")
+            del fmap_o, g_o, runs_o
+    if ratios:
+        print(f"{tag} {dtype} / {other} time in turns over the 12 kernel "
+              f"sites: {min(ratios):.3f}-{max(ratios):.3f}, median "
+              f"{statistics.median(ratios):.3f}")
     for st in stats.values():
         st["bound_by"] = "/".join(sorted(st["bound_by"]))
     return stats
 
 
-def phase_float16(cfg, dev, card):
-    """Phase 20: float16 maps (`model.trunk_dtype` and `decoder.gather_dtype`
-    float16, read through `config_kwargs`) at the flagship config's full
-    width, seeded random weights: (a) K1-K4 against their plain versions at
-    the flagship sites (`float16_kernels`); (b) F16_STEPS streaming steps
-    (K1 18 a step; step ms, device busy) and the last window decoded with
-    the kernels and with their plain versions (phase 5's bound); (c) one
-    train step with the kernels (K2 72, K3 and K4 36) and one with their
-    plain versions from equal weights, batch and draws (phase 9's bound).
-    Where the seeded weights overflow float16 on the kernel path and the
-    plain path alike, that is the configuration's property: the run prints
-    it and the kernels stay held at the op level by (a); an overflow on one
-    path only fails. Returns ((a)'s stats, the (K1, K2, K3, K4) launches of
-    (b)'s steps and (c)'s kernel step)."""
-    import copy
-
+def stream_steps(model, frames, steps):
+    """`steps` streaming steps of `model` on `frames`, each synchronized:
+    (evaluator, each step's ms, outputs finite, launches, peak bytes)."""
     from racformer_tpu_torch.eval import StreamingEvaluator
-    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
-    from racformer_tpu_torch.ops import gather_kernel as gk
-    from racformer_tpu_torch.train import (Optimizer, make_draws,
-                                           make_train_step, split_microbatches)
-    from racformer_tpu_torch.train.__main__ import build, to_device
 
-    f16 = torch.float16
-    c16 = copy.deepcopy(cfg)
-    c16["model"]["trunk_dtype"] = "float16"
-    c16["decoder"]["gather_dtype"] = "float16"
-    kwargs = config_kwargs(c16)
-    check(kwargs["trunk_dtype"] == f16
-          and kwargs["decoder"]["gather_dtype"] == f16,
-          "[20] config_kwargs did not take the float16 overrides")
-    with torch.device(dev):
-        model = RaCFormer(**kwargs)
-    random_init_(model, torch.Generator().manual_seed(SEED)).eval()
-    stats = float16_kernels(model, dev)
-    layers = int(cfg["decoder"]["num_layers"])
-
-    # (b) the streaming step
-    frames = ring_frames(model, F16_STEPS + 1, 1536, SEED)
     ev = StreamingEvaluator(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     step_ms, finite = [], True
-    for f in frames[:F16_STEPS]:
+    for f in frames[:steps]:
         t0 = time.perf_counter()
         out = ev.step(f, blocking=False)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         finite = finite and bool(torch.isfinite(out["scores"]).all()
                                  and torch.isfinite(out["bboxes"]).all())
-    l_eval = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    check(tuple(l_eval) == (18 * F16_STEPS, 0, 0, 0),
-          f"[20] float16 streaming launches {l_eval} in {F16_STEPS} steps, "
-          f"expected K1 {18 * F16_STEPS} and no other")
-    feat_cat, lss, radar, l2i, ts = cache = ev.cache
-    check(feat_cat.dtype == f16,
-          f"[20] the cached image pyramid is {feat_cat.dtype}, expected float16")
-    tops = [t.float().abs().max().item() for t in (feat_cat, lss, radar)]
-    busy, _ = device_split(lambda: ev.step(frames[F16_STEPS], blocking=False), 1)
+    return (ev, step_ms, finite, launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def window_pair(model, ev):
+    """The evaluator's cached window decoded with K1 and with its plain
+    version."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+
+    feat_cat, lss, radar, l2i, ts = ev.cache
     args = (feat_cat, lss, radar, l2i, ts[:, :1] - ts)
     a = model.decode_window(*args)
     with gk.force_reference():
         b = model.decode_window(*args)
-    fin_a, fin_b = finite_outputs(a), finite_outputs(b)
-    steady = statistics.median(step_ms[1:])
-    print(f"[20] (b) float16 streaming step ({card}): {F16_STEPS} steps, "
-          f"steady {steady:.2f} ms (first {step_ms[0]:.2f}), device busy "
-          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / steady):.3f}), peak "
-          f"{peak / 2**30:.2f} GiB; K1 launches per step "
-          f"{l_eval[0] // F16_STEPS}; outputs finite {finite}; largest |value| "
-          f"of the float16 image pyramid {tops[0]:.4g}, of the cached float32 "
-          f"LSS BEV {tops[1]:.4g} and radar BEV {tops[2]:.4g}, which the "
-          f"decoder projects into its float16 value maps (float16 max "
-          f"{torch.finfo(f16).max:g})")
-    overflow = []
-    if fin_a and fin_b:
-        tol_cls, tol_box = head_bound(b["all_cls_scores"][-1],
-                                      b["all_bbox_preds"][-1])
-        e_cls = (a["all_cls_scores"][-1] - b["all_cls_scores"][-1]).abs().max().item()
-        e_box = (a["all_bbox_preds"][-1] - b["all_bbox_preds"][-1]).abs().max().item()
-        print(f"[20] (b) last window, K1 against its plain version: class "
-              f"logits max |d| {e_cls:.4g} (bound {tol_cls:.4g}), boxes max "
-              f"|d| {e_box:.4g} (bound {tol_box:.4g}, phase 5's)")
-        check(finite and e_cls <= tol_cls and e_box <= tol_box,
-              "[20] the float16 streaming step with K1 drifts from the plain "
-              "version, or its steps were not finite")
-    else:
-        check(not fin_a and not fin_b and not finite,
-              f"[20] float16 window finite with the kernels {fin_a}, with the "
-              f"plain versions {fin_b}, steps finite {finite}: one path only "
-              f"overflowed")
-        overflow.append("eval")
-        print(f"[20] (b) OVERFLOW: the seeded weights overflow float16 in the "
-              f"eval step with the kernels and with their plain versions alike "
-              f"(a property of the configuration, not of K1; K1 held at the op "
-              f"level in (a))")
-    del ev, a, b, args, cache, feat_cat, lss, radar, model
-    torch.cuda.empty_cache()
+    return a, b
 
-    # (c) one train step with the kernels, one with their plain versions
-    tmodel, _, _, dataset, batch = build(c16, dev, SEED, 1000)
+
+def window_drift(tag, a, b):
+    """Phase 5's check of a window decoded with K1 (a) against its plain
+    version (b): the last layer's class logits and boxes."""
+    tol_cls, tol_box = head_bound(b["all_cls_scores"][-1],
+                                  b["all_bbox_preds"][-1])
+    e_cls = (a["all_cls_scores"][-1] - b["all_cls_scores"][-1]).abs().max().item()
+    e_box = (a["all_bbox_preds"][-1] - b["all_bbox_preds"][-1]).abs().max().item()
+    print(f"{tag} last window, K1 against its plain version: class "
+          f"logits max |d| {e_cls:.4g} (bound {tol_cls:.4g}), boxes max "
+          f"|d| {e_box:.4g} (bound {tol_box:.4g}, phase 5's)")
+    return e_cls <= tol_cls and e_box <= tol_box
+
+
+def train_pair(cfg, dev):
+    """One train step of `cfg`'s model (the train driver's `build`, batch of
+    the config, lr 0) with the kernels and one with their plain versions
+    from equal weights, batch and draws: (kernel metrics, plain metrics,
+    their gradients, the kernel step's synchronized ms, its peak bytes, its
+    launches, batch, microbatches)."""
+    from racformer_tpu_torch.ops import gather_kernel as gk
+    from racformer_tpu_torch.train import (Optimizer, make_draws,
+                                           make_train_step, split_microbatches)
+    from racformer_tpu_torch.train.__main__ import build, to_device
+
+    tmodel, _, _, dataset, batch = build(cfg, dev, SEED, 1000)
     accum = int(cfg.get("accumulate_steps", 1))
     tb = to_device(dataset.batch(list(range(batch))), dev)
     opt = Optimizer(tmodel.named_parameters(), base_lr=0.0)
@@ -3325,23 +3307,105 @@ def phase_float16(cfg, dev, card):
     ma = step(tb, draws=draws)
     torch.cuda.synchronize()
     t_step = (time.perf_counter() - t0) * 1e3
-    l_train = launch_counts()
-    tpeak = torch.cuda.max_memory_allocated()
-    per = SITES * layers * accum
-    check(tuple(l_train) == (0, 2 * per, per, per),
-          f"[20] float16 train step launches {l_train}, expected "
-          f"{(0, 2 * per, per, per)}")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     ga = grads_of(tmodel, ma)
-    fin_a = all(np.isfinite(float(v)) for v in ma.values()) and all(
-        bool(torch.isfinite(g).all()) for g in ga.values())
     tmodel.load_state_dict(state)
     before = launch_counts()
     with gk.force_reference():
         mb = step(tb, draws=draws)
-    check(launch_counts() == before, "[20] force_reference() launched a kernel")
+    check(launch_counts() == before, "force_reference() launched a kernel")
     gb = grads_of(tmodel, mb)
-    fin_b = all(np.isfinite(float(v)) for v in mb.values()) and all(
-        bool(torch.isfinite(g).all()) for g in gb.values())
+    return ma, mb, ga, gb, t_step, peak, launches, batch, accum
+
+
+def finite_step(metrics, grads):
+    """Whether a train step's losses and gradients are all finite."""
+    return all(np.isfinite(float(v)) for v in metrics.values()) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+def phase_float16(cfg, dev, card):
+    """Phase 20: float16 maps (`model.trunk_dtype` and `decoder.gather_dtype`
+    float16, read through `config_kwargs`) at the flagship config's full
+    width, seeded random weights: (a) K1-K4 against their plain versions at
+    the flagship sites (`site_kernels`, in turns with bf16); (b) F16_STEPS
+    streaming steps (K1 18 a step; step ms, device busy) and the last window
+    decoded with the kernels and with their plain versions (phase 5's
+    bound); (c) one train step with the kernels (K2 72, K3 and K4 36) and
+    one with their plain versions from equal weights, batch and draws
+    (phase 9's bound). Where the seeded weights overflow float16 on the
+    kernel path and the plain path alike, that is the configuration's
+    property: the run prints it and the kernels stay held at the op level
+    by (a); an overflow on one path only fails. Returns ((a)'s stats, the
+    (K1, K2, K3, K4) launches of (b)'s steps and (c)'s kernel step)."""
+    import copy
+
+    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
+
+    f16 = torch.float16
+    c16 = copy.deepcopy(cfg)
+    c16["model"]["trunk_dtype"] = "float16"
+    c16["decoder"]["gather_dtype"] = "float16"
+    kwargs = config_kwargs(c16)
+    check(kwargs["trunk_dtype"] == f16
+          and kwargs["decoder"]["gather_dtype"] == f16,
+          "[20] config_kwargs did not take the float16 overrides")
+    with torch.device(dev):
+        model = RaCFormer(**kwargs)
+    random_init_(model, torch.Generator().manual_seed(SEED)).eval()
+    stats = site_kernels(model, dev, f16, "[20]", SEED + 20,
+                         turns_with=torch.bfloat16)
+    layers = int(cfg["decoder"]["num_layers"])
+
+    # (b) the streaming step
+    frames = ring_frames(model, F16_STEPS + 1, 1536, SEED)
+    ev, step_ms, finite, l_eval, peak = stream_steps(model, frames, F16_STEPS)
+    check(tuple(l_eval) == (18 * F16_STEPS, 0, 0, 0),
+          f"[20] float16 streaming launches {l_eval} in {F16_STEPS} steps, "
+          f"expected K1 {18 * F16_STEPS} and no other")
+    feat_cat, lss, radar = ev.cache[:3]
+    check(feat_cat.dtype == f16,
+          f"[20] the cached image pyramid is {feat_cat.dtype}, expected float16")
+    tops = [t.float().abs().max().item() for t in (feat_cat, lss, radar)]
+    busy, _ = device_split(lambda: ev.step(frames[F16_STEPS], blocking=False), 1)
+    a, b = window_pair(model, ev)
+    fin_a, fin_b = finite_outputs(a), finite_outputs(b)
+    steady = statistics.median(step_ms[1:])
+    print(f"[20] (b) float16 streaming step ({card}): {F16_STEPS} steps, "
+          f"steady {steady:.2f} ms (first {step_ms[0]:.2f}), device busy "
+          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / steady):.3f}), peak "
+          f"{peak / 2**30:.2f} GiB; K1 launches per step "
+          f"{l_eval[0] // F16_STEPS}; outputs finite {finite}; largest |value| "
+          f"of the float16 image pyramid {tops[0]:.4g}, of the cached float32 "
+          f"LSS BEV {tops[1]:.4g} and radar BEV {tops[2]:.4g}, which the "
+          f"decoder projects into its float16 value maps (float16 max "
+          f"{torch.finfo(f16).max:g})")
+    overflow = []
+    if fin_a and fin_b:
+        check(window_drift("[20] (b)", a, b) and finite,
+              "[20] the float16 streaming step with K1 drifts from the plain "
+              "version, or its steps were not finite")
+    else:
+        check(not fin_a and not fin_b and not finite,
+              f"[20] float16 window finite with the kernels {fin_a}, with the "
+              f"plain versions {fin_b}, steps finite {finite}: one path only "
+              f"overflowed")
+        overflow.append("eval")
+        print(f"[20] (b) OVERFLOW: the seeded weights overflow float16 in the "
+              f"eval step with the kernels and with their plain versions alike "
+              f"(a property of the configuration, not of K1; K1 held at the op "
+              f"level in (a))")
+    del ev, a, b, feat_cat, lss, radar, model
+    torch.cuda.empty_cache()
+
+    # (c) one train step with the kernels, one with their plain versions
+    ma, mb, ga, gb, t_step, tpeak, l_train, batch, accum = train_pair(c16, dev)
+    per = SITES * layers * accum
+    check(tuple(l_train) == (0, 2 * per, per, per),
+          f"[20] float16 train step launches {l_train}, expected "
+          f"{(0, 2 * per, per, per)}")
+    fin_a, fin_b = finite_step(ma, ga), finite_step(mb, gb)
     print(f"[20] (c) float16 train step (batch {batch}, {accum} microbatches, "
           f"{card}): {t_step:.2f} ms with the kernels (the first float16 step), "
           f"peak {tpeak / 2**30:.2f} GiB; launches K2 {l_train[1]}, K3 "
@@ -3367,12 +3431,249 @@ def phase_float16(cfg, dev, card):
               f"train step with the kernels and with their plain versions "
               f"alike (a property of the configuration, not of K2-K4; they "
               f"are held at the op level in (a))")
-    del tmodel, dataset, tb, step, opt, state, ga, gb
+    del ma, mb, ga, gb
     torch.cuda.empty_cache()
     launches = tuple(int(x) + int(y) for x, y in zip(l_eval, l_train))
     print(f"[20] float16 launches on the main path: K1 {launches[0]}, K2 "
           f"{launches[1]}, K3 {launches[2]}, K4 {launches[3]}; overflow: "
           f"{', '.join(overflow) or 'none'}")
+    return stats, launches
+
+
+FRONT_CONFIG = (REPO / "racformer_tpu_torch" / "configs"
+                / "racformer_r50_nuimg_704x256_f8_3cam_3rad.py")
+FRONT_MINI_CONFIG = FRONT_CONFIG.with_name(
+    "racformer_r50_nuimg_704x256_f8_3cam_3rad_mini.py")
+FRONT_STEPS = 5  # phase 21's streaming steps
+FRONT_TRAIN_SAMPLES = 4  # one epoch of 2 train-driver steps at batch 2
+
+
+@contextlib.contextmanager
+def metrics_calls():
+    """Records every `detection_metrics` call the drivers make (both import
+    it from `eval.offline` when they evaluate): its gts and keywords."""
+    from racformer_tpu_torch.eval import offline
+
+    calls, real = [], offline.detection_metrics
+
+    def spy(preds, gts, **kw):
+        calls.append(dict(preds=preds, gts=gts, **kw))
+        return real(preds, gts, **kw)
+
+    offline.detection_metrics = spy
+    try:
+        yield calls
+    finally:
+        offline.detection_metrics = real
+
+
+def gt_counted(call, front_only):
+    """The GT boxes a recorded metrics call counts, with or without the
+    front-only filter (through `gt_filter`, which sees the boxes that pass
+    every protocol filter)."""
+    from racformer_tpu_torch.eval.metrics import nuscenes_metrics
+
+    seen = []
+
+    def count(i, boxes, labels, g):
+        seen.append(len(boxes))
+        return np.ones(len(boxes), bool)
+
+    nuscenes_metrics(call["preds"], call["gts"], front_only=front_only,
+                     gt_filter=count)
+    return sum(seen)
+
+
+def front_only_acts(tag, call):
+    """The call took the front-only flag, and the filter keeps some GT boxes
+    but not all."""
+    every, front = gt_counted(call, False), gt_counted(call, True)
+    print(f"{tag} metrics front_only={call['front_only']}: GT boxes counted "
+          f"{front} with the filter, {every} without")
+    check(call["front_only"] is True and 0 < front < every,
+          f"{tag} the front-only filter did not act")
+
+
+def phase_front(dev, card):
+    """Phase 21: the fork's front-only configuration (the port's copy of
+    racformer_r50_nuimg_704x256_f8_3cam_3rad.py: 3 cameras, 3 radars,
+    `eval_front_only`) unreduced, seeded random weights: (a) K1-K4 at its
+    sites in bf16 against their plain versions (`site_kernels`); (b)
+    FRONT_STEPS streaming steps (K1 18 a step) and the last window against
+    K1's plain version (phase 5's bound); (c) one train step with K2-K4
+    (72 / 36 / 36) against their plain versions (phase 9's bound); (d) the
+    eval driver with the _mini config on phase 13's nuScenes-layout split,
+    --streaming and offline, its front-only filter acting on the GT; (e)
+    the train driver 2 steps on that split with an in-training eval and a
+    verified checkpoint. Returns ((a)'s stats, the (K1, K2, K3, K4)
+    launches of (b), (c)'s kernel step, (d) and (e))."""
+    import pickle
+    import tempfile
+
+    from racformer_tpu_torch.config import Config
+    from racformer_tpu_torch.eval.__main__ import camera_types
+    from racformer_tpu_torch.eval.__main__ import main as eval_main
+    from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
+    from racformer_tpu_torch.train.__main__ import main as train_main
+
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(str(FRONT_CONFIG))
+    kwargs = config_kwargs(cfg)
+    layers = int(cfg["decoder"]["num_layers"])
+    with torch.device(dev):
+        model = RaCFormer(**kwargs)
+    random_init_(model, torch.Generator().manual_seed(SEED)).eval()
+    cams = camera_types(cfg, model)
+    print(f"[21] {FRONT_CONFIG.relative_to(REPO)}: cameras {list(cams)}, "
+          f"radars {cfg['radar_types']}, {kwargs['num_frames']} frames, "
+          f"{kwargs['image_hw']}, Q={kwargs['num_query']}, "
+          f"C={kwargs['embed_dims']}, {layers} layers, "
+          f"D={kwargs['depth_bins']}, BEV {kwargs['bev_size']}, "
+          f"eval_front_only={cfg['eval_front_only']}; "
+          f"{sum(p.numel() for p in model.parameters())} parameters")
+    check(model.num_cams == 3 and len(cams) == 3 and cfg["eval_front_only"],
+          "[21] the front-only config does not name 3 cameras and front-only "
+          "evaluation")
+    launches = np.zeros(4, np.int64)
+
+    # (a) K1-K4 at the N = 3 sites
+    stats = site_kernels(model, dev, torch.bfloat16, "[21] (a)", SEED + 21)
+
+    # (b) the streaming step
+    frames = ring_frames(model, FRONT_STEPS + 1, int(cfg["radar"]["max_points"]),
+                         SEED)
+    ev, step_ms, finite, l_eval, peak = stream_steps(model, frames, FRONT_STEPS)
+    launches += l_eval
+    busy, _ = device_split(lambda: ev.step(frames[FRONT_STEPS], blocking=False),
+                           1)
+    steady = statistics.median(step_ms[1:])
+    print(f"[21] (b) streaming step, 3 cameras ({card}): {FRONT_STEPS} steps, "
+          f"steady {steady:.2f} ms (first {step_ms[0]:.2f}), device busy "
+          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / steady):.3f}), peak "
+          f"{peak / 2**30:.2f} GiB; K1 launches per step "
+          f"{l_eval[0] / FRONT_STEPS:g}; outputs finite {finite}")
+    check(tuple(l_eval) == (18 * FRONT_STEPS, 0, 0, 0),
+          f"[21] streaming launches {l_eval} in {FRONT_STEPS} steps, expected "
+          f"K1 {18 * FRONT_STEPS} and no other")
+    a, b = window_pair(model, ev)
+    check(finite and finite_outputs(a) and window_drift("[21] (b)", a, b),
+          "[21] the streaming step with K1 drifts from the plain version, or "
+          "its outputs were not finite")
+    del ev, a, b, model
+    torch.cuda.empty_cache()
+
+    # (c) one train step with the kernels, one with their plain versions
+    ma, mb, ga, gb, t_step, tpeak, l_train, batch, accum = train_pair(cfg, dev)
+    launches += l_train
+    per = SITES * layers * accum
+    print(f"[21] (c) train step, 3 cameras (batch {batch}, {accum} "
+          f"microbatches, {card}): {t_step:.2f} ms with the kernels (the first "
+          f"step), peak {tpeak / 2**30:.2f} GiB; launches K2 {l_train[1]}, K3 "
+          f"{l_train[2]}, K4 {l_train[3]}; loss_total "
+          f"{float(ma['loss_total']):.6g} / {float(mb['loss_total']):.6g}, "
+          f"grad_norm {float(ma['grad_norm']):.6g} / "
+          f"{float(mb['grad_norm']):.6g} (kernels / plain versions)")
+    check(tuple(l_train) == (0, 2 * per, per, per),
+          f"[21] train step launches {l_train}, expected {(0, 2 * per, per, per)}")
+    check(finite_step(ma, ga) and finite_step(mb, gb),
+          "[21] the train step's losses or gradients are not finite")
+    loss_rel, cos, rel = compare_steps(
+        "[21] (c) train step, kernels vs plain versions:", ma, mb, ga, gb)
+    check(loss_rel <= 1e-3 and cos >= 0.99 and rel <= 0.05,
+          "[21] the train step with the kernels drifts from the plain versions "
+          "(phase 9's bound: losses 1e-3 relative, every gradient's cosine "
+          ">= 0.99, global relative gradient difference <= 0.05)")
+    del ma, mb, ga, gb
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d) the eval driver, front-only, on a nuScenes-layout split
+        n = NUSC_SCENES * NUSC_SAMPLES
+        ann = write_nuscenes_split(Path(tmp))
+        print(f"[21] (d) the eval driver on {FRONT_MINI_CONFIG.name}: {n} "
+              f"keyframes of phase 13's split ({len(NUSC_CAMS)} cameras), "
+              f"read through cameras {list(cams)}")
+        for name, extra in (("--streaming", ["--streaming"]), ("offline", [])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with metrics_calls() as calls:
+                (preds, metrics), text = run_driver(eval_main, [
+                    "--config", str(FRONT_MINI_CONFIG), "--override",
+                    f"data.val.ann_file={ann}", *extra])
+            secs = time.perf_counter() - t0
+            l_drv = launch_counts()
+            launches += l_drv
+            rate = [l for l in text.splitlines() if l.startswith("eval:")]
+            print(f"[21] (d) eval driver {name}: "
+                  f"{rate[0] if rate else 'no eval line'} ({secs:.2f} s in "
+                  f"all); K1 launches {l_drv[0]}; metrics "
+                  f"{json.dumps({k: round(float(v), 4) for k, v in (metrics or {}).items() if isinstance(v, (int, float))})}")
+            check(f"eval: {n} samples" in text and '"NDS"' in text,
+                  f"[21] eval driver {name}: no eval line or metrics")
+            check(metrics is not None and all(
+                np.isfinite(float(v)) for v in metrics.values()
+                if isinstance(v, (int, float))),
+                f"[21] eval driver {name}: metrics")
+            check(len(preds) == n and all(
+                np.isfinite(p["scores"]).all() and np.isfinite(p["bboxes"]).all()
+                for p in preds), f"[21] eval driver {name}: predictions")
+            check(tuple(l_drv) == (18 * n, 0, 0, 0),
+                  f"[21] eval driver {name}: launches {l_drv}, expected K1 "
+                  f"{18 * n}")
+            check(len(calls) == 1, f"[21] eval driver {name}: metrics calls "
+                                   f"{len(calls)}")
+            front_only_acts(f"[21] (d) eval driver {name}:", calls[0])
+
+        # (e) the train driver: 2 steps (one epoch) and an in-training eval
+        with open(ann, "rb") as f:
+            infos = pickle.load(f)["infos"][:FRONT_TRAIN_SAMPLES]
+        train_ann = Path(tmp) / "nuscenes_infos_train_sweep.pkl"
+        with open(train_ann, "wb") as f:
+            pickle.dump({"infos": infos}, f)
+        want = (0, 2 * per, per, per)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with metrics_calls() as calls:
+            res, out = run_driver(train_main, [
+                "--config", str(FRONT_CONFIG), "--work-dir",
+                str(Path(tmp) / "wd"), "--max-steps", "2", "--override",
+                f"data.train.ann_file={train_ann}", f"data.val.ann_file={ann}",
+                "evaluation.interval=1", "evaluation.max_samples=2",
+                "log_interval=1"])
+        secs = time.perf_counter() - t0
+        launches += launch_counts()
+        for st in res["steps"]:
+            print(f"[21] (e) train driver step {st['step'] + 1}: host ms "
+                  f"{st['host_ms']:.1f}, loader wait ms {st['wait_ms']:.2f}")
+        for sv in res["saves"]:
+            print(f"[21] (e) checkpoint step {sv['step']}: save + verify "
+                  f"{sv['seconds']:.2f} s, {sv['bytes']} B, verified "
+                  f"{sv['verified']}")
+        for e in res["evals"]:
+            print(f"[21] (e) in-training eval @ {e['step']}: {e['samples']} "
+                  f"samples in {e['seconds']:.2f} s, K1 launches "
+                  f"{e['k1_launches']}, NDS {e.get('metrics', {}).get('NDS')}")
+        print(f"[21] (e) train driver: {secs:.2f} s in all")
+        check(res["last_step"] == 2 and "training done" in out,
+              "[21] train driver: not 2 steps")
+        check_driver_steps("[21] (e) train driver", res, want)
+        rec = [json.loads(line) for line in
+               (Path(tmp) / "wd" / "metrics.jsonl").read_text().splitlines()]
+        check(rec and all(np.isfinite(r["loss_total"]) for r in rec
+                          if "loss_total" in r),
+              "[21] train driver: a loss is not finite")
+        check(res["saves"] and all(sv["verified"] for sv in res["saves"]),
+              "[21] train driver: a checkpoint failed verification")
+        check(len(res["evals"]) == 1 and res["evals"][0]["k1_launches"] == 36,
+              f"[21] train driver: in-training evals {res['evals']}")
+        check(len(calls) == 1, f"[21] train driver: metrics calls {len(calls)}")
+        front_only_acts("[21] (e) in-training eval:", calls[0])
+        del res
+    torch.cuda.empty_cache()
+    launches = tuple(int(x) for x in launches)
+    print(f"[21] front-only launches on the main path: K1 {launches[0]}, K2 "
+          f"{launches[1]}, K3 {launches[2]}, K4 {launches[3]}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
     return stats, launches
 
 
@@ -3436,6 +3737,7 @@ def main(argv):
     vod_launches = phase_vod(dev, card)
     head_launches = phase_head_dtype(cfg, dev, card)
     f16_stats, f16_launches = phase_float16(cfg, dev, card)
+    front_stats, front_launches = phase_front(dev, card)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
@@ -3448,20 +3750,23 @@ def main(argv):
           f"{tpeak / 2**30:.2f} GiB; the train driver's step {drv_steady:.2f} "
           f"ms, peak {drv_peak / 2**30:.2f} GiB")
     k1_launches = launches + ms_launches + off_launches + drv_launches + \
-        train_drv[0] + ddp_k1 + vod_launches[0] + head_launches[0]
+        train_drv[0] + ddp_k1 + vod_launches[0] + head_launches[0] + \
+        front_launches[0]
     print(f"[-] K1 launches on the eval paths: {k1_launches} = streaming "
           f"{launches} + {MS_STREAMS} streams {ms_launches} + offline "
           f"{off_launches} + eval driver {drv_launches} + train driver's evals "
           f"and the eval driver on its work dir {train_drv[0]} + the eval "
           f"driver under torchrun (phase 16, every rank) {ddp_k1} + VoD "
           f"(phase 18) {vod_launches[0]} + head dtypes (phase 19) "
-          f"{head_launches[0]}")
+          f"{head_launches[0]} + front-only config (phase 21) "
+          f"{front_launches[0]}")
     print(f"[-] K2, K3, K4 launches: train steps (phase 8) {tlaunches[1:]} + "
           f"train driver (phase 14) {train_drv[1:]} + train driver under "
           f"torchrun (phase 15, every rank) {ddp_launches[1:]} + remat "
           f"policies (phase 17) {remat_launches[1:]} + VoD (phase 18) "
           f"{vod_launches[1:]} + bf16 head and unfolded samplers (phase 19) "
-          f"{head_launches[1:]}")
+          f"{head_launches[1:]} + front-only config (phase 21) "
+          f"{front_launches[1:]}")
     kernels = [{
         "name": "gather_fold", "route": "cuda",
         "source": "racformer_tpu_torch/csrc/gather_fold.cu",
@@ -3475,7 +3780,7 @@ def main(argv):
             ("patch_corner_grads", "racformer_tpu/ops/gather_kernel.py:80")),
             tlaunches[1:], [sum(x) for x in zip(
                 train_drv[1:], ddp_launches[1:], remat_launches[1:],
-                vod_launches[1:], head_launches[1:])]):
+                vod_launches[1:], head_launches[1:], front_launches[1:])]):
         st = patch[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"racformer_tpu_torch/csrc/{name}.cu",

@@ -1,8 +1,10 @@
 """Config system of the port: a copy of `racformer_tpu/config.py` (standard
 library only), so that the port reads configs without importing the JAX
-package; `tests/test_torch_config.py` holds the two loaders equal on every
-config of `racformer_tpu/configs/`. Python-file configs with `_base_`
-inheritance and dotted CLI overrides, the public surface of mmcv's `Config`.
+package. The port's configs are its own, in `racformer_tpu_torch/configs/`
+(byte-equal copies of the JAX package's); `tests/test_torch_config.py`
+holds the copies and the two loaders equal. Python-file configs with
+`_base_` inheritance and dotted CLI overrides, the public surface of mmcv's
+`Config`.
 
 A config file is a python file whose module-level names become the config
 dict. `_base_ = ['other.py']` merges parent configs (dict-deep, child wins).

@@ -2,7 +2,7 @@
 on one CUDA device unless `--device cpu` is asked for:
 
     python -m racformer_tpu_torch.eval \\
-        --config racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py \\
+        --config racformer_tpu_torch/configs/racformer_r50_nuimg_704x256_f8.py \\
         [--checkpoint FILE] [--synthetic] [--streaming [--streams N]]
 
 Three protocols: the batched offline forward over every frame of each

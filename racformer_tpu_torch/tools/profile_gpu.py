@@ -126,9 +126,8 @@ def trace_and_summarize(
     return {"by_op": by_op, "by_category": cat}
 
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "racformer_tpu", "configs",
-    "racformer_r50_nuimg_704x256_f8.py")
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "configs", "racformer_r50_nuimg_704x256_f8.py")
 
 
 def _main(argv):

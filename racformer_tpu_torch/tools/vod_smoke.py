@@ -44,8 +44,8 @@ import tempfile
 
 import numpy as np
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "racformer_tpu", "configs", "racformer_vod.py")
+CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "configs", "racformer_vod.py")
 EPOCHS = 40
 
 H, W = 64, 128

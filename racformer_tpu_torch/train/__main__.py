@@ -2,7 +2,7 @@
 on one CUDA device unless `--device cpu` is asked for:
 
     python -m racformer_tpu_torch.train \\
-        --config racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py \\
+        --config racformer_tpu_torch/configs/racformer_r50_nuimg_704x256_f8.py \\
         [--work-dir DIR] [--override k=v ...] [--resume] [--synthetic] \\
         [--load-from FILE] [--ema] [--match-stats] [--fp16-loss-scale S]
     torchrun --nproc_per_node=N -m racformer_tpu_torch.train --distributed ...

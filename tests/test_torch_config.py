@@ -4,6 +4,8 @@ the originals:
 * `racformer_tpu_torch.config.Config` reads every config of
   `racformer_tpu/configs/` (those with `_base_` included) to the same dict
   as `racformer_tpu.config.Config`, and applies overrides the same way;
+* the port's configs (`racformer_tpu_torch/configs/`) are byte-equal
+  copies of those, file for file, and read to the same dicts;
 * the rule tables of `racformer_tpu_torch.tools.convert_weights` map every
   state-dict key of the flagship port model to the same flax path and the
   same layout transform as `racformer_tpu.tools.convert_weights`.
@@ -21,8 +23,9 @@ from racformer_tpu_torch import config as tconfig
 from racformer_tpu_torch.model import RaCFormer
 from racformer_tpu_torch.tools import convert_weights as tcw
 
-CONFIGS = sorted((pathlib.Path(__file__).resolve().parents[1] / "racformer_tpu"
-                  / "configs").glob("*.py"))
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CONFIGS = sorted((REPO / "racformer_tpu" / "configs").glob("*.py"))
+PORT_CONFIGS = REPO / "racformer_tpu_torch" / "configs"
 
 
 def test_configs_with_base_exist():
@@ -37,6 +40,19 @@ def test_config_loader_matches_jax_package(path):
     assert "_base_" not in got
     over = ["optimizer.base_lr=1e-5", "model.num_query=17", "new.key=[1, 2]"]
     assert dict(got.merge_override(over)) == dict(want.merge_override(over))
+
+
+def test_port_holds_every_config():
+    assert sorted(p.name for p in PORT_CONFIGS.glob("*.py")) == [
+        p.name for p in CONFIGS]
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
+def test_port_config_is_a_copy(path):
+    copy = PORT_CONFIGS / path.name
+    assert copy.read_bytes() == path.read_bytes()
+    got = tconfig.Config.fromfile(str(copy))
+    assert dict(got) == dict(jconfig.Config.fromfile(str(path)))
 
 
 def _jax_rule(key):

@@ -53,7 +53,7 @@ from tests import torch_distributed_workers as workers
 from tests.test_drivers import TINY
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
+CONFIG = REPO / "racformer_tpu_torch" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
 JOIN_S = 120
 
 

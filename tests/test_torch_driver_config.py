@@ -7,13 +7,17 @@
   `camera_types` (the front-only 3cam_3rad config names three), the
   reader's six by default, and refuse a count that is not `model.num_cams`.
   The JAX drivers pass no `camera_types`, so the JAX package reads six
-  cameras whatever the config names: a fault the port does not copy.
+  cameras whatever the config names: a fault the port does not copy;
+* the front-only _mini config: the eval driver caps the val set at its
+  `max_samples` (50) and passes `eval_front_only` on to the metrics.
 """
 
 import pathlib
+import pickle
 import sys
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,9 +29,10 @@ from tests.test_drivers import TINY
 from tests.test_torch_train_driver import six_camera_split
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIGS = REPO / "racformer_tpu" / "configs"
+CONFIGS = REPO / "racformer_tpu_torch" / "configs"
 FLAGSHIP = CONFIGS / "racformer_r50_nuimg_704x256_f8.py"
 THREE_CAMS = CONFIGS / "racformer_r50_nuimg_704x256_f8_3cam_3rad.py"
+THREE_CAMS_MINI = CONFIGS / "racformer_r50_nuimg_704x256_f8_3cam_3rad_mini.py"
 FLAGS = ("torch.backends.cuda.matmul.allow_tf32=False",
          "torch.backends.cudnn.allow_tf32=False")
 
@@ -117,3 +122,56 @@ def test_drivers_refuse_cameras_the_model_does_not_take(tmp_path, config,
         eval_driver.build_dataset(cfg, model, synthetic=False)
     with pytest.raises(ValueError, match="num_cams"):
         train_driver.train_dataset(cfg, model, 1, synthetic=False, seed=0)
+
+
+def test_mini_config_caps_the_val_set_without_reading_images(tmp_path,
+                                                            monkeypatch):
+    """60 keyframes in the nuScenes info layout whose images do not exist:
+    the _mini config's val set holds 50 of them, the first by time, and
+    building it reads no image."""
+    infos = [dict(token=f"k{i}", scene_token=f"scene-{i // 20}",
+                  timestamp=1_533_151_603_547_590 + 500_000 * (59 - i),
+                  cams={name: dict(data_path=str(tmp_path / f"k{i}_{name}.jpg"))
+                        for name in port_nuscenes.DEFAULT_CAMERAS},
+                  radar_points=np.zeros((0, 7), np.float32),
+                  gt_boxes=np.zeros((0, 9), np.float32),
+                  gt_labels=np.zeros(0, np.int64), sweeps_cam=[])
+             for i in range(60)]
+    pkl = tmp_path / "nuscenes_infos_val_sweep.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({"infos": infos}, f)
+    def no_image(self, path):
+        raise AssertionError(f"read {path}")
+
+    monkeypatch.setattr(port_nuscenes.NuScenesRadarDataset, "_load_image",
+                        no_image)
+    cfg = Config.fromfile(str(THREE_CAMS_MINI)).merge_override(
+        [f"data.val.ann_file={pkl}"])
+    assert cfg["max_samples"] == 50 and cfg["eval_front_only"] is True
+    model = _model(cfg)
+    ds = eval_driver.build_dataset(cfg, model, synthetic=False,
+                                   max_samples=cfg.get("max_samples"))
+    assert isinstance(ds, port_nuscenes.NuScenesRadarDataset)
+    assert len(ds) == 50
+    assert [info["token"] for info in ds.infos] == [f"k{i}" for i in
+                                                    range(59, 9, -1)]
+    assert ds.camera_types == ["CAM_FRONT", "CAM_FRONT_LEFT", "CAM_FRONT_RIGHT"]
+
+
+def test_eval_driver_passes_front_only_to_the_metrics(monkeypatch, tf32_on):
+    from racformer_tpu_torch.eval import metrics
+
+    seen = []
+    real = metrics.nuscenes_metrics
+
+    def spy(preds, gts, **kw):
+        seen.append(kw["front_only"])
+        return real(preds, gts, **kw)
+
+    monkeypatch.setattr(metrics, "nuscenes_metrics", spy)
+    preds, m = eval_driver.main([
+        "--config", str(THREE_CAMS_MINI), "--device", "cpu", "--synthetic",
+        "--max-samples", "1", "--override", *TINY, "model.num_cams=3",
+        "decoder.num_layers=1"])
+    assert len(preds) == 1 and m is not None
+    assert seen == [True]

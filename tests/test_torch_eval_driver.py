@@ -25,7 +25,7 @@ from racformer_tpu_torch.config import Config
 from tests.test_drivers import TINY
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIG = "racformer_tpu/configs/racformer_r50_nuimg_704x256_f8.py"
+CONFIG = "racformer_tpu_torch/configs/racformer_r50_nuimg_704x256_f8.py"
 
 
 @pytest.fixture(scope="module", autouse=True)

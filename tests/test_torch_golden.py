@@ -41,7 +41,7 @@ from racformer_tpu_torch.model import (RaCFormer, config_kwargs,
 from tests.test_torch_slice import ring_batch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIGS = REPO / "racformer_tpu" / "configs"
+CONFIGS = REPO / "racformer_tpu_torch" / "configs"
 ARG_KEYS = ("radar_points", "radar_mask", "radar_depth", "radar_rcs",
             "lidar2img", "img2lidar", "time_diff")
 TINY_TOL = dict(encode=(1e-3, 1e-3), depth=(1e-3, 1e-3), head=(1e-3, 2e-3))
@@ -143,6 +143,8 @@ def hold_golden(pair):
 
 @pytest.mark.parametrize("config", [
     pytest.param("racformer_r50_nuimg_704x256_f8.py", marks=pytest.mark.slow),
+    pytest.param("racformer_r50_nuimg_704x256_f8_3cam_3rad.py",
+                 marks=pytest.mark.slow),
     "racformer_vod.py"])
 def test_full_width_golden(config):
     cfg = Config.fromfile(str(CONFIGS / config))

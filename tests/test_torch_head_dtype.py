@@ -80,7 +80,7 @@ from tests.test_torch_train_step import _unclip
 from tests.test_torch_vod_train import _run_step_pair
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FLAGSHIP = REPO / "racformer_tpu" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
+FLAGSHIP = REPO / "racformer_tpu_torch" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
 OVERRIDES = ["model.head_dtype=bfloat16", "model.trunk_dtype=float32",
              "model.num_decoder_layers=2", "model.fused_gather=false"]
 

@@ -44,7 +44,7 @@ from tests.test_drivers import TINY
 from tests.test_torch_data import nuscenes_fixture
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
+CONFIG = REPO / "racformer_tpu_torch" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
 TRAIN_PY = (REPO / "train.py").read_text()
 
 

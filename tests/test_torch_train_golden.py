@@ -72,7 +72,7 @@ from tests.test_torch_train_step import (_capturing, _fixed_dn_prepare,
                                          _recipe_label, _unclip)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
+CONFIG = REPO / "racformer_tpu_torch" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
 GT = 32
 RTOL, ATOL = 2e-4, 1e-5  # tests/test_train_golden.py's
 MODEL_KEYS = ("radar_points", "radar_mask", "radar_depth", "radar_rcs",

@@ -57,8 +57,8 @@ from tests.test_torch_train_parts import _gt, _outs
 from tests.test_torch_train_step import _batch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-CONFIGS = sorted((REPO / "racformer_tpu" / "configs").glob("*.py"))
-FLAGSHIP = REPO / "racformer_tpu" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
+CONFIGS = sorted((REPO / "racformer_tpu_torch" / "configs").glob("*.py"))
+FLAGSHIP = REPO / "racformer_tpu_torch" / "configs" / "racformer_r50_nuimg_704x256_f8.py"
 ARG_KEYS = ("radar_points", "radar_mask", "radar_depth", "radar_rcs",
             "lidar2img", "img2lidar", "time_diff")
 

@@ -71,7 +71,7 @@ from tests.test_torch_slice import TINY, perturb, ring_batch
 from tests.test_torch_train_parts import _jax_grid_draws, _jax_photo_draws
 
 B, G, A = 2, 4, 2
-CONFIG = (Path(__file__).resolve().parents[1] / "racformer_tpu" / "configs"
+CONFIG = (Path(__file__).resolve().parents[1] / "racformer_tpu_torch" / "configs"
           / "racformer_r50_nuimg_704x256_f8.py")
 DEPTH = dict(d_lo=1.0, d_hi=65.0, num_bins=16, downsample=16)
 TOTAL_STEPS = 1000

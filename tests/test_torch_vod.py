@@ -1,4 +1,4 @@
-"""The VoD configuration (`racformer_tpu/configs/racformer_vod.py`: 1
+"""The VoD configuration (`racformer_tpu_torch/configs/racformer_vod.py`: 1
 camera, 1 frame, 3 classes, KITTI protocol) of the port against the JAX
 package on the CPU.
 
@@ -49,7 +49,7 @@ from tests.test_torch_slice import ring_batch
 from tests.test_torch_tools import assert_same
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-VOD_CONFIG = REPO / "racformer_tpu" / "configs" / "racformer_vod.py"
+VOD_CONFIG = REPO / "racformer_tpu_torch" / "configs" / "racformer_vod.py"
 # tests/test_drivers.py's VoD overrides, embed_dims 256 (see above)
 TINY_VOD = ["model.embed_dims=256", "model.num_query=12",
             "model.num_clusters=2", "model.image_hw=(64,128)",
@@ -187,7 +187,7 @@ def test_vod_best_checkpoint_metric():
     assert best_metric(cfg) == "mAP3D_all"
     assert best_metric(cfg.merge_override(
         ["evaluation.save_best='mAP3D_corridor'"])) == "mAP3D_corridor"
-    flagship = Config.fromfile(str(REPO / "racformer_tpu" / "configs"
+    flagship = Config.fromfile(str(REPO / "racformer_tpu_torch" / "configs"
                                    / "racformer_r50_nuimg_704x256_f8.py"))
     assert best_metric(flagship) == "NDS"
     assert best_metric(flagship.merge_override(

@@ -1,4 +1,4 @@
-"""One train step of the VoD configuration (`racformer_tpu/configs/
+"""One train step of the VoD configuration (`racformer_tpu_torch/configs/
 racformer_vod.py`: 1 camera, 1 frame, 3 classes) of the port against the
 JAX package's `make_train_step` on the CPU: the config's batch 2 in 2
 microbatches, at `tests/test_torch_vod.py`'s tiny overrides (embed_dims

@@ -10,9 +10,13 @@ port.
   package `racformer_tpu`, Pillow nor matplotlib; its sources and
   `chip_smoke.py` import none of them (Pillow only inside the functions
   that decode or write images, matplotlib inside those that draw) and
-  use no fused-attention operator, `torch.compile` or kernel library.
+  use no fused-attention operator, `torch.compile` or kernel library;
+  nor do they name a path under `racformer_tpu/` to open (configs are read
+  from the port's copies): only docstrings naming an original, and
+  `file:line` citations of an original's kernel, name one.
 """
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -21,6 +25,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from racformer_tpu.model import RaCFormer as JaxRaCFormer
@@ -110,6 +115,58 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+CITATION = re.compile(r"racformer_tpu/[\w/]+\.py:\d+")
+USAGE = re.compile(r"--[\w-]+[ =]racformer_tpu/")
+
+
+def jax_package_paths(text):
+    """The places where a source names a path under the JAX package
+    `racformer_tpu/`: a string, not a docstring, holding `racformer_tpu/`
+    (but for a `file:line` citation of an original), the name
+    "racformer_tpu" as a part of a path (an operand of `/` or an argument of
+    a call such as `os.path.join`), and a usage line passing such a path to
+    an option, docstrings included."""
+    tree = ast.parse(text)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    found = [m.group(0) for m in USAGE.finditer(text)]
+    for node in ast.walk(tree):
+        parts = []
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            parts = [node.left, node.right]
+        elif isinstance(node, ast.Call):
+            parts = list(node.args)
+        found += [f"{ast.unparse(node)[:80]}" for part in parts
+                  if isinstance(part, ast.Constant)
+                  and part.value == "racformer_tpu"]
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs
+                and re.search(r"(?<![\w.])racformer_tpu/", node.value)
+                and not CITATION.fullmatch(node.value)):
+            found.append(node.value[:80])
+    return found
+
+
+@pytest.mark.parametrize("src,bad", [
+    ('CONFIG = os.path.join(ROOT, "racformer_tpu", "configs", "a.py")', True),
+    ('CONFIG = REPO / "racformer_tpu" / "configs" / "a.py"', True),
+    ('open("racformer_tpu/configs/a.py")', True),
+    ('x = f"{root}/racformer_tpu/configs/{name}"', True),
+    ('"""Usage:\n\n    python -m m --config racformer_tpu/configs/a.py\n"""',
+     True),
+    ('"""A copy of `racformer_tpu/data/nuscenes.py`."""', False),
+    ('def f():\n    """Port of `racformer_tpu/ops/bilinear.py`."""', False),
+    ('K = {"replaces": "racformer_tpu/ops/gather_kernel.py:187"}', False),
+    ('bad = [m for m in mods if m in ("jax", "racformer_tpu")]', False),
+    ('CONFIG = REPO / "racformer_tpu_torch" / "configs" / "a.py"', False),
+])
+def test_jax_package_path_scan(src, bad):
+    assert bool(jax_package_paths(src)) == bad
+
+
 def test_port_sources_use_no_forbidden_code():
     banned = ("import jax", "from jax", "import flax", "from flax",
               "import orbax", "from orbax",
@@ -124,6 +181,8 @@ def test_port_sources_use_no_forbidden_code():
         for b in banned:
             assert b not in text, f"{path.name} contains {b!r}"
         assert not jax_package.search(text), f"{path.name} imports racformer_tpu"
+        paths = jax_package_paths(text)
+        assert not paths, f"{path.name} names the JAX package's files: {paths}"
         assert not re.search(r"^(from|import) PIL", text, re.M), (
             f"{path.name} imports Pillow at module level")
         assert not re.search(r"^(from|import) matplotlib", text, re.M), (
