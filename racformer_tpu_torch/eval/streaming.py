@@ -25,7 +25,7 @@ import torch
 
 from ..model.racformer import RaCFormer, preprocess_images
 from .decode import decode_boxes, decode_config
-from ..utils import distributed
+from ..utils import distributed, tracing
 from .offline import gather_gt_sample, synchronize
 
 FIELDS = ("imgs", "radar_points", "radar_mask", "radar_depth", "radar_rcs",
@@ -48,6 +48,7 @@ class StreamingEvaluator:
         # (feat_cat, lss, radar, lidar2img, ts), each [B, T, ...]
         self.cache = None
         self.decode_cfg = decode_config(eval_cfg)
+        self.steps = 0  # steps made: the step id of their spans
 
     def reset(self):
         """Call at scene boundaries (a new scene must not see old frames)."""
@@ -74,35 +75,41 @@ class StreamingEvaluator:
         """Encode the newest frame of each stream (`t`: FIELDS as [B, ...]
         tensors on the device, `ts`: [B] float32 scene-relative seconds),
         shift the windows, decode them and decode the boxes."""
-        imgs = preprocess_images(t["imgs"])
-        H = imgs.shape[2]
-        radar = []
-        for key in ("radar_depth", "radar_rcs"):
-            m = t[key].float()
-            if m.dim() == 3:  # column form [B, N, W]: the rasterizer smears columns
-                m = m[:, :, None, :].expand(m.shape[0], m.shape[1], H, m.shape[2])
-            radar.append(m)
-        feat_cat, lss, rbev, _ = self.model.encode_frame(
-            imgs, t["radar_points"].float(), t["radar_mask"].bool(), radar[0],
-            radar[1], t["img2lidar"].float())
-        new = (feat_cat, lss, rbev, t["lidar2img"].float(), ts)
-        if self.cache is None and reset is not None:
-            # the multi-stream window, sized from the first encode; never
-            # read: every stream resets on its first step
-            self.cache = tuple(x.new_zeros((x.shape[0], self.T, *x.shape[1:]))
-                               for x in new)
-        old = self.cache or (None,) * len(new)
-        self.cache = tuple(self._window(n, o, reset) for n, o in zip(new, old))
-        cat_w, lss_w, radar_w, l2i_w, ts_w = self.cache
-        outs = self.model.decode_window(cat_w, lss_w, radar_w, l2i_w,
-                                        ts_w[:, :1] - ts_w)
-        return decode_boxes(outs["all_cls_scores"][-1],
-                            outs["all_bbox_preds"][-1], **self.decode_cfg)
+        with tracing.span("eval.encode_frame"):
+            imgs = preprocess_images(t["imgs"])
+            H = imgs.shape[2]
+            radar = []
+            for key in ("radar_depth", "radar_rcs"):
+                m = t[key].float()
+                if m.dim() == 3:  # column form [B, N, W]: the rasterizer smears
+                    m = m[:, :, None, :].expand(m.shape[0], m.shape[1], H,  # columns
+                                                m.shape[2])
+                radar.append(m)
+            feat_cat, lss, rbev, _ = self.model.encode_frame(
+                imgs, t["radar_points"].float(), t["radar_mask"].bool(), radar[0],
+                radar[1], t["img2lidar"].float())
+            new = (feat_cat, lss, rbev, t["lidar2img"].float(), ts)
+        with tracing.span("eval.window"):
+            if self.cache is None and reset is not None:
+                # the multi-stream window, sized from the first encode; never
+                # read: every stream resets on its first step
+                self.cache = tuple(x.new_zeros((x.shape[0], self.T, *x.shape[1:]))
+                                   for x in new)
+            old = self.cache or (None,) * len(new)
+            self.cache = tuple(self._window(n, o, reset) for n, o in zip(new, old))
+        with tracing.span("eval.decode_window"):
+            cat_w, lss_w, radar_w, l2i_w, ts_w = self.cache
+            outs = self.model.decode_window(cat_w, lss_w, radar_w, l2i_w,
+                                            ts_w[:, :1] - ts_w)
+        with tracing.span("eval.decode_boxes"):
+            return decode_boxes(outs["all_cls_scores"][-1],
+                                outs["all_bbox_preds"][-1], **self.decode_cfg)
 
     def _result(self, out: Dict, blocking: bool) -> Dict:
-        if blocking:
+        if not blocking:
+            return out
+        with tracing.span("eval.result"):
             return {k: v.cpu().numpy() for k, v in out.items()}
-        return out
 
     def step(self, frame: Dict, blocking: bool = True) -> Dict:
         """frame: imgs [N, H, W, 3] (raw 0-255, uint8 preferred), radar_points
@@ -112,13 +119,17 @@ class StreamingEvaluator:
 
         Returns the decoded boxes of the current frame with a leading axis
         of 1: numpy arrays when `blocking`, device tensors otherwise."""
-        _check_relative(abs(float(frame["timestamp"])))
-        dev = self.device
-        t = {k: torch.as_tensor(np.asarray(frame[k])).to(dev)[None]
-             for k in FIELDS}
-        ts = torch.tensor([float(frame["timestamp"])], dtype=torch.float32,
-                          device=dev)
-        return self._result(self._advance(t, ts, None), blocking)
+        self.steps += 1
+        with tracing.span("eval.step", step=self.steps, frames=1):
+            _check_relative(abs(float(frame["timestamp"])))
+            dev = self.device
+            with tracing.span("eval.upload"):
+                t = _upload({k: torch.as_tensor(np.asarray(frame[k]))
+                             for k in FIELDS}, dev)
+                t = {k: v[None] for k, v in t.items()}
+                ts = torch.tensor([float(frame["timestamp"])],
+                                  dtype=torch.float32, device=dev)
+            return self._result(self._advance(t, ts, None), blocking)
 
     def step_batch(self, frames, resets: Sequence[bool],
                    blocking: bool = True) -> Dict:
@@ -133,20 +144,34 @@ class StreamingEvaluator:
         (frame 0 of every stream included). Returns the decoded dict with
         leading batch axis B."""
         dev = self.device
-        if isinstance(frames, dict):
-            ts = torch.as_tensor(frames["timestamp"]).to(dev, torch.float32)
-            _check_relative(float(ts.abs().max()))
-            t = {k: torch.as_tensor(frames[k]).to(dev) for k in FIELDS}
-        else:
-            _check_relative(max(abs(float(f["timestamp"])) for f in frames))
-            t = {k: torch.from_numpy(np.stack([np.asarray(f[k]) for f in frames]))
-                 .to(dev) for k in FIELDS}
-            ts = torch.tensor([float(f["timestamp"]) for f in frames],
-                              dtype=torch.float32, device=dev)
-        if self.cache is None and not all(resets):
-            raise ValueError("every stream must reset on its first step")
-        reset = torch.tensor([bool(r) for r in resets], device=dev)
-        return self._result(self._advance(t, ts, reset), blocking)
+        self.steps += 1
+        with tracing.span("eval.step", step=self.steps, frames=len(resets)):
+            with tracing.span("eval.upload"):
+                if isinstance(frames, dict):
+                    ts = torch.as_tensor(frames["timestamp"]).to(dev, torch.float32)
+                    _check_relative(float(ts.abs().max()))
+                    t = _upload({k: torch.as_tensor(frames[k]) for k in FIELDS},
+                                dev)
+                else:
+                    _check_relative(max(abs(float(f["timestamp"])) for f in frames))
+                    t = _upload({k: torch.from_numpy(
+                        np.stack([np.asarray(f[k]) for f in frames]))
+                        for k in FIELDS}, dev)
+                    ts = torch.tensor([float(f["timestamp"]) for f in frames],
+                                      dtype=torch.float32, device=dev)
+                if self.cache is None and not all(resets):
+                    raise ValueError("every stream must reset on its first step")
+                reset = torch.tensor([bool(r) for r in resets], device=dev)
+            return self._result(self._advance(t, ts, reset), blocking)
+
+
+def _upload(host: Dict[str, torch.Tensor], dev) -> Dict[str, torch.Tensor]:
+    """The tensors on `dev`; the bytes of those in host memory (what a
+    CUDA device is sent) are counted as the open span's `h2d_bytes`."""
+    if tracing.recording():
+        tracing.count("h2d_bytes", sum(x.nbytes for x in host.values()
+                                       if not x.is_cuda))
+    return {k: x.to(dev) for k, x in host.items()}
 
 
 def sample_timestamp(sample: Dict, idx: int) -> float:

@@ -34,6 +34,7 @@ from ..nn.resnet import ResNet50
 from ..nn.view_transformer import LSSViewTransformer
 from ..ops.msmv import level_concat
 from ..ops.pillars import PillarGrid
+from ..utils import tracing
 
 IMG_MEAN = (123.675, 116.280, 103.530)  # RGB
 IMG_STD = (58.395, 57.120, 57.375)
@@ -119,30 +120,32 @@ class RaCFormer(nn.Module):
         Level l of camera n starts at row n * rcat + roffs[l]
         (`nn.img_sampling.concat_geometry`); narrower levels are zero-padded
         on the right to the level-0 width."""
-        S, N, H, W, _ = imgs.shape
-        c2, c3, c4, c5 = self.img_backbone(imgs.reshape(S * N, H, W, 3))
-        G = self.num_groups
-        c = self.embed_dims // G
-        levels = []
-        for l, f in enumerate(self.img_neck([c2, c3, c4, c5])):
-            h, w = f.shape[1:3]
-            if (h, w) != (H // (4 << l), W // (4 << l)):
-                raise ValueError(f"level {l} is {h}x{w} for a {H}x{W} image")
-            levels.append(f.reshape(S, N, h, w, G, c).permute(0, 4, 1, 2, 3, 5))
-        feat_cat = level_concat(levels)
-        lss_feat = self.img_lss_neck([c4, c5])
-        hf, wf = lss_feat.shape[1:3]
-        return feat_cat, lss_feat.float().reshape(S, N, hf, wf, self.embed_dims)
+        with tracing.span("model.trunk"):
+            S, N, H, W, _ = imgs.shape
+            c2, c3, c4, c5 = self.img_backbone(imgs.reshape(S * N, H, W, 3))
+            G = self.num_groups
+            c = self.embed_dims // G
+            levels = []
+            for l, f in enumerate(self.img_neck([c2, c3, c4, c5])):
+                h, w = f.shape[1:3]
+                if (h, w) != (H // (4 << l), W // (4 << l)):
+                    raise ValueError(f"level {l} is {h}x{w} for a {H}x{W} image")
+                levels.append(f.reshape(S, N, h, w, G, c).permute(0, 4, 1, 2, 3, 5))
+            feat_cat = level_concat(levels)
+            lss_feat = self.img_lss_neck([c4, c5])
+            hf, wf = lss_feat.shape[1:3]
+            return feat_cat, lss_feat.float().reshape(S, N, hf, wf, self.embed_dims)
 
     def _bev_branches(self, lss_feat, radar_points, radar_mask, radar_depth,
                       radar_rcs, img2lidar):
-        S, N = lss_feat.shape[:2]
-        mlp_input = img2lidar[..., :3, :3].reshape(S, N, 9)
-        lss_bev, depth_logits = self.img_lss_view_transformer(
-            lss_feat, radar_depth, radar_rcs, img2lidar, mlp_input)
-        radar_bev = self.radar_bev_conv(
-            self.radar_voxel_encoder(radar_points, radar_mask))
-        return lss_bev, radar_bev, depth_logits
+        with tracing.span("model.bev"):
+            S, N = lss_feat.shape[:2]
+            mlp_input = img2lidar[..., :3, :3].reshape(S, N, 9)
+            lss_bev, depth_logits = self.img_lss_view_transformer(
+                lss_feat, radar_depth, radar_rcs, img2lidar, mlp_input)
+            radar_bev = self.radar_bev_conv(
+                self.radar_voxel_encoder(radar_points, radar_mask))
+            return lss_bev, radar_bev, depth_logits
 
     def _encode(self, imgs, radar_points, radar_mask, radar_depth, radar_rcs,
                 img2lidar):
@@ -155,8 +158,9 @@ class RaCFormer(nn.Module):
     def _decode(self, feat_cat, lss_bev, radar_bev, lidar2img, time_diff,
                 **gt):
         dt = self.head_dtype
-        return self.pts_bbox_head(feat_cat, lss_bev.to(dt), radar_bev.to(dt),
-                                  lidar2img.float(), time_diff.float(), **gt)
+        with tracing.span("model.head"):
+            return self.pts_bbox_head(feat_cat, lss_bev.to(dt), radar_bev.to(dt),
+                                      lidar2img.float(), time_diff.float(), **gt)
 
     @torch.no_grad()
     def encode_frame(self, imgs, radar_points, radar_mask, radar_depth,

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.bbox_codec import inverse_sigmoid, theta_d_to_xy
 from ..ops import bilinear
+from ..utils import tracing
 from .adaptive_mixing import AdaptiveMixing
 from .bev_sampling import BEVSampling
 from .conv_gru import RadarBEVTemporalEncoder
@@ -238,18 +239,21 @@ class RaCFormerDecoder(nn.Module):
         remat = self.training and self.remat and torch.is_grad_enabled()
         cls_all, bbox_all = [], []
         for i in range(self.num_layers):
-            args = (None if rng is None else rng.spawn(), query_bbox,
-                    query_feat, feat_cat, lss_value, radar_value, lidar2img,
-                    time_diff, self.d_region_list[i], attn_mask,
-                    self.fused_gather is not False)
-            if remat:
-                context = remat_context(self.remat_policy)
-                kw = {} if context is None else {"context_fn": context}
-                cls_score, bbox_pred, query_feat = checkpoint(
-                    self._iteration, *args, use_reentrant=False, **kw)
-            else:
-                cls_score, bbox_pred, query_feat = self._iteration(*args)
-            cls_all.append(cls_score)
-            bbox_all.append(theta_d_to_xy(bbox_pred))
-            query_bbox = bbox_pred.detach()
+            # the span opens outside the checkpointed call, which the
+            # backward runs again
+            with tracing.span("head.iteration"):
+                args = (None if rng is None else rng.spawn(), query_bbox,
+                        query_feat, feat_cat, lss_value, radar_value, lidar2img,
+                        time_diff, self.d_region_list[i], attn_mask,
+                        self.fused_gather is not False)
+                if remat:
+                    context = remat_context(self.remat_policy)
+                    kw = {} if context is None else {"context_fn": context}
+                    cls_score, bbox_pred, query_feat = checkpoint(
+                        self._iteration, *args, use_reentrant=False, **kw)
+                else:
+                    cls_score, bbox_pred, query_feat = self._iteration(*args)
+                cls_all.append(cls_score)
+                bbox_all.append(theta_d_to_xy(bbox_pred))
+                query_bbox = bbox_pred.detach()
         return torch.stack(cls_all), torch.stack(bbox_all)

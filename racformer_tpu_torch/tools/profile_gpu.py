@@ -8,6 +8,10 @@ Library use:
     from racformer_tpu_torch.tools.profile_gpu import trace_and_summarize
     summary = trace_and_summarize(step_fn, n_steps=4)
 
+It also turns the program's span recorder on (`utils/tracing.py`) and
+prints, for each span the steps opened, its host ms per step and the
+device ms per step of the kernels the profiler links to it.
+
 CLI (profiles the flagship streaming step on the card, seeded random
 weights and synthetic frames):
     python -m racformer_tpu_torch.tools.profile_gpu [outdir] [n_steps]
@@ -84,6 +88,34 @@ def kernel_times(events, n_steps: int = 1):
     return dict(by_name), kind
 
 
+def span_times(events, records, n_steps: int = 1, device: bool = True):
+    """{span name: {"depth", "host_ms", "device_ms", "counts"}} per step,
+    in the order the spans first opened: the recorder's host ms (`records`,
+    `utils.tracing`), the device ms the profiler links to the span's host
+    event in `events` (its `key_averages()`; None without device activity)
+    and the counts, each summed over the span's calls."""
+    from torch.autograd import DeviceType
+
+    from ..utils.tracing import PREFIX
+
+    linked = collections.Counter()
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.key.startswith(PREFIX):
+            linked[e.key[len(PREFIX):]] += e.device_time_total
+    out: Dict[str, Dict] = {}
+    depth = {}
+    for r in records:
+        depth[r.index] = depth.get(r.parent, -1) + 1
+        row = out.setdefault(r.name, {"depth": depth[r.index], "host_ms": 0.0,
+                                      "device_ms": (linked[r.name] / 1e3 / n_steps
+                                                    if device else None),
+                                      "counts": collections.Counter()})
+        row["host_ms"] += r.ms / n_steps
+        for k, v in r.counts.items():
+            row["counts"][k] += v / n_steps
+    return out
+
+
 def trace_and_summarize(
     step: Callable[[int], object],
     n_steps: int = 4,
@@ -91,26 +123,39 @@ def trace_and_summarize(
     top: int = 15,
     printer: Callable[[str], None] = print,
 ) -> Dict[str, Dict[str, float]]:
-    """Run `step(i)` n_steps times under `torch.profiler` and summarize.
+    """Run `step(i)` n_steps times under `torch.profiler`, with the
+    program's span recorder on, and summarize.
 
     `step` should enqueue device work without synchronizing; the device is
     synchronized after the loop, inside the profile. Returns {"by_op":
-    {kernel: ms per step}, "by_category": {category: ms per step}}; with
-    `outdir`, the Chrome trace goes to `outdir/trace.json`. The categories
-    partition the kernels (unlike the TPU tool's, where a loop op counts
-    its body), so they sum to the device time of the steps."""
+    {kernel: ms per step}, "by_category": {category: ms per step},
+    "by_span": `span_times`' table}; with `outdir`, the Chrome trace goes
+    to `outdir/trace.json`. The categories partition the kernels (unlike
+    the TPU tool's, where a loop op counts its body), so they sum to the
+    device time of the steps. A span's device ms counts the kernels
+    launched under it, those of the spans inside it included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ..utils import tracing
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
                                            else [])
-    with profile(activities=activities) as prof:
-        for i in range(n_steps):
-            step(i)
-        if cuda:
-            torch.cuda.synchronize()
-    by_op, kind = kernel_times(prof.key_averages(), n_steps)
+    tracing.clear()
+    tracing.enable()
+    try:
+        with profile(activities=activities) as prof:
+            for i in range(n_steps):
+                step(i)
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    events = prof.key_averages()
+    by_op, kind = kernel_times(events, n_steps)
+    spans = span_times(events, tracing.records(), n_steps, kind == "device")
+    tracing.clear()
     if outdir:
         os.makedirs(outdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
@@ -123,7 +168,16 @@ def trace_and_summarize(
     printer("top kernels:" if kind == "device" else "top ops:")
     for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:top]:
         printer(f"  {v:9.3f} ms/step  {k[:100]}")
-    return {"by_op": by_op, "by_category": cat}
+    if spans:
+        printer("program spans (ms/step: host under the profiler; device: "
+                "the kernels launched under the span):")
+    for name, row in spans.items():
+        dev = ("not measured" if row["device_ms"] is None
+               else f"{row['device_ms']:9.3f}")
+        counts = " ".join(f"{k}={v:g}" for k, v in row["counts"].items())
+        printer(f"  {'  ' * row['depth'] + name:28s} host {row['host_ms']:9.3f}"
+                f"  device {dev}  {counts}".rstrip())
+    return {"by_op": by_op, "by_category": cat, "by_span": spans}
 
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..ops.bbox_codec import normalize_bbox
 from ..ops.depth_bins import depth_to_sid_index
+from ..utils import tracing
 from .matching import assign_host, match_cost
 
 CODE_WEIGHTS = (2.0, 2.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
@@ -104,8 +105,9 @@ def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
         cost = match_cost(cls_scores.float(), bbox_preds.float(),
                           gt_bboxes[None], safe_labels[None], gt_mask[None],
                           CODE_WEIGHTS)  # [L, B, Q, G]
-    cost_host = cost.float().cpu().numpy()  # the assignment runs on the host
-    matched_host = assign_host(cost_host)  # [L, B, G]
+    with tracing.span("train.matching", gt_rows=L * B * G):
+        cost_host = cost.float().cpu().numpy()  # the assignment runs on the host
+        matched_host = assign_host(cost_host)  # [L, B, G]
     matched = torch.from_numpy(matched_host.astype(np.int64)).to(dev)
     gt_norm = normalize_bbox(gt_bboxes)  # [B, G, 10]
 

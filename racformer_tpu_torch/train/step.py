@@ -40,7 +40,7 @@ from ..model.augment import (grid_mask, grid_mask_draws, photometric_distortion,
 from ..model.racformer import RaCFormer, preprocess_images
 from ..nn.head import dn_draws
 from ..nn.layers import DropoutRNG, dropout_rng
-from ..utils import distributed
+from ..utils import distributed, tracing
 from .losses import depth_fg_count, depth_loss, detection_loss
 from .optim import Optimizer
 
@@ -123,33 +123,40 @@ def make_train_step(model: RaCFormer, optimizer: Optimizer,
     net = model if ddp is None else ddp
 
     def loss_fn(micro, draws, depth_weight, pos_norm, fg_norm):
-        imgs = photometric_distortion(micro["imgs"], _to(draws["photo"], micro))
-        imgs = grid_mask(imgs, draws["grid"])
-        seed = draws.get("dropout_seed")
-        rng = None if seed is None else DropoutRNG(seed, imgs.device)
-        with dropout_rng(rng):
-            outs = net(preprocess_images(imgs), *[micro[k] for k in MODEL_KEYS],
-                         gt_bboxes=micro["gt_bboxes"],
-                         gt_labels=micro["gt_labels"], gt_mask=micro["gt_mask"],
-                         dn=_to(draws["dn"], micro))
-        losses = detection_loss(outs, micro["gt_bboxes"], micro["gt_labels"],
-                                micro["gt_mask"], num_classes=model.num_classes,
-                                with_match=match_stats, pos_norm=pos_norm)
-        if "gt_depth" in micro:
-            ld = depth_loss(outs["depth_logits"], micro["gt_depth"], **depth_kw,
-                            weight=1.0, fg_norm=fg_norm) * depth_weight
-            losses["loss_depth"] = ld
-            losses["loss_total"] = losses["loss_total"] + ld
-        return losses
+        with tracing.span("train.forward"):
+            imgs = photometric_distortion(micro["imgs"], _to(draws["photo"], micro))
+            imgs = grid_mask(imgs, draws["grid"])
+            seed = draws.get("dropout_seed")
+            rng = None if seed is None else DropoutRNG(seed, imgs.device)
+            with dropout_rng(rng):
+                outs = net(preprocess_images(imgs), *[micro[k] for k in MODEL_KEYS],
+                           gt_bboxes=micro["gt_bboxes"],
+                           gt_labels=micro["gt_labels"], gt_mask=micro["gt_mask"],
+                           dn=_to(draws["dn"], micro))
+        with tracing.span("train.loss"):
+            losses = detection_loss(outs, micro["gt_bboxes"], micro["gt_labels"],
+                                    micro["gt_mask"], num_classes=model.num_classes,
+                                    with_match=match_stats, pos_norm=pos_norm)
+            if "gt_depth" in micro:
+                ld = depth_loss(outs["depth_logits"], micro["gt_depth"], **depth_kw,
+                                weight=1.0, fg_norm=fg_norm) * depth_weight
+                losses["loss_depth"] = ld
+                losses["loss_total"] = losses["loss_total"] + ld
+            return losses
 
     def train_step(batch: Dict, generator: Optional[torch.Generator] = None,
                    draws: Optional[List[Dict]] = None, depth_weight=2.0):
+        with tracing.span("train.step", step=optimizer.count):
+            return _train_step(batch, generator, draws, depth_weight)
+
+    def _train_step(batch, generator, draws, depth_weight):
         model.train()
         world = distributed.world()
         micros = split_microbatches(batch, accum_steps)
         if draws is None:
-            draws = [make_draws(model, m, generator, world=world,
-                                rank=distributed.rank()) for m in micros]
+            with tracing.span("train.draws"):
+                draws = [make_draws(model, m, generator, world=world,
+                                    rank=distributed.rank()) for m in micros]
         counts = [batch["gt_mask"].sum().float()]
         if "gt_depth" in batch:
             counts.append(depth_fg_count(batch["gt_depth"], **depth_kw).float())
@@ -164,10 +171,11 @@ def make_train_step(model: RaCFormer, optimizer: Optimizer,
             sync = ddp is None or i == len(micros) - 1
             with contextlib.nullcontext() if sync else ddp.no_sync():
                 losses = loss_fn(micro, d, depth_weight, pos_norm, fg_norm)
-                objective = losses["loss_total"] / accum_steps
-                if loss_scale > 0:
-                    objective = objective * loss_scale
-                objective.backward()
+                with tracing.span("train.backward"):
+                    objective = losses["loss_total"] / accum_steps
+                    if loss_scale > 0:
+                        objective = objective * loss_scale
+                    objective.backward()
             for k, v in losses.items():
                 if k.startswith("_"):
                     aux.setdefault(k, []).append(v)
@@ -184,11 +192,12 @@ def make_train_step(model: RaCFormer, optimizer: Optimizer,
             stacked = np.stack(parts, axis=2)  # [L, B / A, A, G]
             metrics[k] = stacked.reshape(stacked.shape[0], -1,
                                          *stacked.shape[3:])
-        if loss_scale > 0:
-            grads = [p.grad for p in optimizer.params.values()
-                     if p.grad is not None]
-            torch._foreach_div_(grads, loss_scale)
-        metrics["grad_norm"] = optimizer.step()
+        with tracing.span("train.optimizer"):
+            if loss_scale > 0:
+                grads = [p.grad for p in optimizer.params.values()
+                         if p.grad is not None]
+                torch._foreach_div_(grads, loss_scale)
+            metrics["grad_norm"] = optimizer.step()
         return metrics
 
     return train_step

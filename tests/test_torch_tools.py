@@ -369,18 +369,31 @@ def test_profile_gpu_categorizes_kernel_names():
 def test_profile_gpu_trace_and_summarize_on_a_cpu_step(tmp_path):
     """No CUDA device here: the summary is of the aten ops' host time, says
     so, partitions by_op into by_category, and writes the Chrome trace."""
+    from racformer_tpu_torch.utils import tracing
+
     lin = torch.nn.Linear(32, 16)
     x = torch.randn(8, 32)
     lines, calls = [], []
 
     def step(i):
         calls.append(i)
-        return torch.relu(lin(x)).sum()
+        with tracing.span("eval.step", step=i, frames=2):
+            with tracing.span("eval.decode_window"):
+                return torch.relu(lin(x)).sum()
 
     out = profile_gpu.trace_and_summarize(step, n_steps=3, outdir=str(tmp_path),
                                           top=5, printer=lines.append)
     assert calls == [0, 1, 2]
-    assert set(out) == {"by_op", "by_category"}
+    assert set(out) == {"by_op", "by_category", "by_span"}
+    # the program's spans: host ms per step, no device ms without a card
+    spans = out["by_span"]
+    assert list(spans) == ["eval.step", "eval.decode_window"]
+    assert [s["depth"] for s in spans.values()] == [0, 1]
+    assert spans["eval.step"]["counts"] == {"frames": 2}
+    assert 0 < spans["eval.decode_window"]["host_ms"] <= spans["eval.step"]["host_ms"]
+    assert all(s["device_ms"] is None for s in spans.values())
+    assert any("eval.decode_window" in ln and "not measured" in ln for ln in lines)
+    assert tracing.records() == [] and not tracing.recording()
     assert "aten::addmm" in out["by_op"] and all(
         v >= 0 for v in out["by_op"].values())
     assert out["by_category"].get("matmul/conv", 0) >= out["by_op"]["aten::addmm"]
