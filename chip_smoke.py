@@ -597,7 +597,7 @@ def fold_edge_cases(fmap, pts, fold, gen):
 
 
 def phase_main(model, dev, profile_path):
-    from racformer_tpu_torch.eval import StreamingEvaluator
+    from racformer_tpu_torch.eval import StreamingEvaluator, graphs
     from racformer_tpu_torch.ops import gather_kernel as gk
 
     frames = ring_frames(model, STEPS + 4, 1536, SEED)
@@ -606,6 +606,7 @@ def phase_main(model, dev, profile_path):
     torch.cuda.reset_peak_memory_stats()
     step_ms, outs = [], []
     gk.LAUNCHES = 0
+    replays = graphs.GRAPH_REPLAYS
     for frame in frames[:STEPS]:
         t0 = time.perf_counter()
         out = ev.step(frame, blocking=False)
@@ -616,6 +617,12 @@ def phase_main(model, dev, profile_path):
     peak = torch.cuda.max_memory_allocated()
     check(launches == 18 * STEPS,
           f"K1 launched {launches} times in {STEPS} steps, expected {18 * STEPS}")
+    (plan,) = ev.graphs.plans.values()
+    replays = graphs.GRAPH_REPLAYS - replays
+    check(replays == plan.graphs * (STEPS - 1),
+          f"{replays} CUDA graphs replayed in {STEPS} steps, expected "
+          f"{plan.graphs} in each step after the first")
+    exact = replay_equals_eager(model, ev)
     head = model.pts_bbox_head
     n_boxes = min(300, head.num_query * head.num_classes)
     for out in outs:
@@ -625,7 +632,10 @@ def phase_main(model, dev, profile_path):
               "non-finite scores or boxes")
     steady = statistics.median(step_ms[2:])
     print(f"[4] {STEPS} streaming steps: K1 launches {launches} "
-          f"({launches // STEPS} per step); outputs finite, boxes "
+          f"({launches // STEPS} per step); the decoder replayed as "
+          f"{plan.graphs} CUDA graphs from step 2, the last window's replay "
+          f"{'bitwise equal to' if exact else 'DIFFERS from'} its eager "
+          f"decode; outputs finite, boxes "
           f"{tuple(outs[-1]['bboxes'].shape)}, valid boxes in last step "
           f"{int(outs[-1]['valid'].sum())}")
     print(f"[4] step ms: first {step_ms[0]:.2f}, second {step_ms[1]:.2f}, "
@@ -648,11 +658,36 @@ def phase_main(model, dev, profile_path):
     return ev, steady, peak, launches
 
 
+def replay_equals_eager(model, ev):
+    """Decode the evaluator's last window again, replayed as its CUDA graphs
+    and eagerly, and check that the head's outputs agree bit for bit. Both
+    decode the same window, so only the decoder runs; it adds in no order
+    that atomics decide (the encoder's `index_add_` does), so no
+    deterministic algorithms are needed, and none change the eager decode's
+    kernels against the captured ones."""
+    from racformer_tpu_torch.eval import graphs
+
+    replays = graphs.GRAPH_REPLAYS
+    (plan,) = ev.graphs.plans.values()
+    with torch.no_grad():
+        replayed = {k: v.clone() for k, v in
+                    ev.graphs.decode(model, ev.cache).items()}
+        check(graphs.GRAPH_REPLAYS - replays == plan.graphs,
+              "the last window's decode did not replay")
+        eager = graphs.decode_window(model, ev.cache)
+    exact = all(torch.equal(replayed[k], eager[k]) for k in eager)
+    check(exact, "a replayed decode differs from the eager decode of its window")
+    return exact
+
+
 def capture_fold_inputs(run):
     """Run `run()` (one eval step) with K1's call sites spied on. Returns
     (the in-view share of the image sample points per decoder iteration,
     {site: (the addresses of K1's inputs as the step made them, a copy of
-    its arguments)} for the first decoder iteration)."""
+    its arguments)} for the first decoder iteration). The step decodes
+    eagerly: a decode replayed as CUDA graphs projects its sample points
+    inside a graph, where no spy sees them."""
+    from racformer_tpu_torch.eval import graphs
     from racformer_tpu_torch.ops import deform_attn, msmv, sampling
     from racformer_tpu_torch.ops import gather_kernel as gk
 
@@ -673,12 +708,15 @@ def capture_fold_inputs(run):
         return gk.patch_sample_fold(*args)
 
     sampling.project_points_to_views = recording
+    key = graphs.replay_key
+    graphs.replay_key = lambda *a: None
     for mod in folds:
         mod.patch_sample_fold = spy
     try:
         run()
     finally:
         sampling.project_points_to_views = orig
+        graphs.replay_key = key
         for mod, fn in folds.items():
             mod.patch_sample_fold = fn
     return seen, caught
@@ -866,19 +904,28 @@ SCORE_TOL = 0.025
 
 
 class HeadOutputs:
-    """The last decoder layer's class logits and boxes of every call of the
-    model's head, in call order (a forward hook)."""
+    """The last decoder layer's class logits and boxes of every window the
+    streaming evaluator decodes, in call order: what it hands to
+    `decode_boxes` (a decode replayed as CUDA graphs calls no module's
+    forward, so a forward hook would miss it)."""
 
-    def __init__(self, model):
+    def __init__(self):
+        from racformer_tpu_torch.eval import streaming
+
         self.outs = []
-        self.handle = model.pts_bbox_head.register_forward_hook(self._hook)
+        self.inner = inner = streaming.decode_boxes
 
-    def _hook(self, module, args, out):
-        self.outs.append((out["all_cls_scores"][-1].float().clone(),
-                          out["all_bbox_preds"][-1].float().clone()))
+        def decode_boxes(cls_scores, bbox_preds, **kw):
+            self.outs.append((cls_scores.float().clone(),
+                              bbox_preds.float().clone()))
+            return inner(cls_scores, bbox_preds, **kw)
+
+        streaming.decode_boxes = decode_boxes
 
     def close(self):
-        self.handle.remove()
+        from racformer_tpu_torch.eval import streaming
+
+        streaming.decode_boxes = self.inner
 
 
 def head_bound(ref_cls, ref_box):
@@ -941,7 +988,7 @@ def phase_multistream(model, dev, profile_path):
     frames_at = lambda t: [tapes[b][0][t] for b in range(B)]
     resets_at = lambda t: [tapes[b][1][t] for b in range(B)]
     ev = StreamingEvaluator(model)
-    heads = HeadOutputs(model)
+    heads = HeadOutputs()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from ..ops import device_constant
 from ..ops.bbox_codec import denormalize_bbox
 
 
@@ -46,7 +47,7 @@ def decode_boxes(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
     boxes = torch.gather(bbox_preds.float(), 1,
                          box_idx[..., None].expand(-1, -1, bbox_preds.shape[-1]))
     boxes = denormalize_bbox(boxes)  # [B, max_num, 9]
-    lim = torch.tensor(post_center_range, device=boxes.device)
+    lim = device_constant(tuple(post_center_range), boxes.device)
     in_range = ((boxes[..., :3] >= lim[:3]).all(-1)
                 & (boxes[..., :3] <= lim[3:]).all(-1))
     z = boxes[..., 2:3] - 0.5 * boxes[..., 5:6]

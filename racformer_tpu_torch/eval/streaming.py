@@ -12,7 +12,10 @@ first frame).
 independent scene streams in lockstep, with per-stream scene resets inside
 the step, and `run_multistream` drives it over a dataset (the throughput
 protocol). Both steps shift the window through the one `_window` function,
-so B = 1 lockstep equals `step()` exactly.
+so B = 1 lockstep equals `step()` exactly. On a CUDA device both decode the
+window through `DecodeGraphs` (`eval/graphs.py`): eagerly at the first
+window of a shape, as replayed CUDA graphs from the second on, which copy
+the window into their inputs.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ..model.racformer import RaCFormer, preprocess_images
 from .decode import decode_boxes, decode_config
+from .graphs import DecodeGraphs
 from ..utils import distributed, tracing
 from .offline import gather_gt_sample, synchronize
 
@@ -49,6 +53,7 @@ class StreamingEvaluator:
         self.cache = None
         self.decode_cfg = decode_config(eval_cfg)
         self.steps = 0  # steps made: the step id of their spans
+        self.graphs = DecodeGraphs()
 
     def reset(self):
         """Call at scene boundaries (a new scene must not see old frames)."""
@@ -66,8 +71,9 @@ class StreamingEvaluator:
         shifted = torch.cat([new[:, None], old[:, : self.T - 1]], dim=1)
         if reset is None:
             return shifted
+        # written over the new window: no third window at the peak
         return torch.where(reset.view(-1, *(1,) * (shifted.dim() - 1)), boot,
-                           shifted)
+                           shifted, out=shifted)
 
     @torch.no_grad()
     def _advance(self, t: Dict[str, torch.Tensor], ts: torch.Tensor,
@@ -90,17 +96,12 @@ class StreamingEvaluator:
                 radar[1], t["img2lidar"].float())
             new = (feat_cat, lss, rbev, t["lidar2img"].float(), ts)
         with tracing.span("eval.window"):
-            if self.cache is None and reset is not None:
-                # the multi-stream window, sized from the first encode; never
-                # read: every stream resets on its first step
-                self.cache = tuple(x.new_zeros((x.shape[0], self.T, *x.shape[1:]))
-                                   for x in new)
+            # without a window every stream restarts (step_batch checks that
+            # every stream resets on its first step)
             old = self.cache or (None,) * len(new)
             self.cache = tuple(self._window(n, o, reset) for n, o in zip(new, old))
         with tracing.span("eval.decode_window"):
-            cat_w, lss_w, radar_w, l2i_w, ts_w = self.cache
-            outs = self.model.decode_window(cat_w, lss_w, radar_w, l2i_w,
-                                            ts_w[:, :1] - ts_w)
+            outs = self.graphs.decode(self.model, self.cache)
         with tracing.span("eval.decode_boxes"):
             return decode_boxes(outs["all_cls_scores"][-1],
                                 outs["all_bbox_preds"][-1], **self.decode_cfg)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops import device_constant
 from ..ops.bbox_codec import theta_d_pair_to_xy, theta_d_to_xy, xy_to_theta_d
 from ..ops.bilinear import sampler_ready
 from ..ops.deform_attn import deform_attn_single_level
@@ -120,8 +121,8 @@ class BEVSampling(nn.Module):
         vel = query_ray[..., 8:10].detach()
         dist = vel[:, :, None, :] * time_diff[:, None, :, None]  # [B, Q, T, 2]
         xy = pts[:, :, None, :, 0:2] - dist[:, :, :, None, :]
-        lo = torch.tensor(self.pc_range[0:2], device=xy.device)
-        hi = torch.tensor(self.pc_range[3:5], device=xy.device)
+        lo = device_constant(self.pc_range[0:2], xy.device)
+        hi = device_constant(self.pc_range[3:5], xy.device)
         td = xy_to_theta_d((xy - lo) / (hi - lo))  # [B, Q, T, MPD, 2]
         d_off = radial_offsets(query_feat, self.ray_points_offset, d_region, D)
         theta = td[..., 0].reshape(B, Q, T, M, P * D)

@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..ops import device_constant
 from ..ops.bbox_codec import encode_bbox, xy_to_theta_d
 from .decoder import RaCFormerDecoder
 from .layers import Embedding
@@ -171,8 +172,8 @@ class RaCFormerHead(nn.Module):
         cls_scores, bbox_preds = self.transformer.decoder(
             query_bbox, query_feat, feat_cat, lss_bev, radar_bev, lidar2img,
             time_diff, attn_mask)
-        lo = torch.tensor(self.pc_range[0:3], device=bbox_preds.device)
-        hi = torch.tensor(self.pc_range[3:6], device=bbox_preds.device)
+        lo = device_constant(self.pc_range[0:3], bbox_preds.device)
+        hi = device_constant(self.pc_range[3:6], bbox_preds.device)
         xyz = bbox_preds[..., 0:3] * (hi - lo) + lo
         bbox_preds = torch.cat([xyz[..., 0:2], bbox_preds[..., 3:5],
                                 xyz[..., 2:3], bbox_preds[..., 5:10]], dim=-1)

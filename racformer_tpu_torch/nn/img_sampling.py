@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..ops import device_constant
 from ..ops.bbox_codec import theta_d_pair_to_xy, theta_d_to_xy, xy_to_theta_d
 from ..ops.bilinear import PAD
 from ..ops.sampling import make_sample_points, sample_image_features
@@ -58,8 +59,8 @@ class ImageRadialSampling(nn.Module):
         dist = vel[:, :, None, :] * time_diff[:, None, :, None]  # [B, Q, T, 2]
         xy = pts[:, :, None, :, 0:2] - dist[:, :, :, None, :]
         z = pts[:, :, None, :, 2:3].expand(B, Q, T, G * P * D, 1)
-        lo = torch.tensor(self.pc_range[0:2], device=xy.device)
-        hi = torch.tensor(self.pc_range[3:5], device=xy.device)
+        lo = device_constant(self.pc_range[0:2], xy.device)
+        hi = device_constant(self.pc_range[3:5], xy.device)
         td = xy_to_theta_d(torch.cat([(xy - lo) / (hi - lo), z], dim=-1))
         d_off = radial_offsets(query_feat, self.ray_points_offset, d_region, D)
         theta = td[..., 0].reshape(B, Q, T, G, P * D)

@@ -16,13 +16,14 @@ import math
 
 import torch
 
+from . import device_constant
+
 TWO_PI = 2.0 * math.pi
 
 
 def _range(pc_range, like: torch.Tensor):
-    lo = torch.tensor(pc_range[0:3], dtype=like.dtype, device=like.device)
-    hi = torch.tensor(pc_range[3:6], dtype=like.dtype, device=like.device)
-    return lo, hi
+    return (device_constant(tuple(pc_range[0:3]), like.device, like.dtype),
+            device_constant(tuple(pc_range[3:6]), like.device, like.dtype))
 
 
 def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:

@@ -164,6 +164,14 @@ def patch_sample_fold_reference(fused, row, x0p, wx, wy, wl, fold):
     return out.reshape(S, K // fold, fold, C).sum(2).to(fused.dtype)
 
 
+def fold_output(fused, row, fold):
+    """An uninitialized tensor of K1's output shape, [S, K // fold, C] in
+    the map dtype."""
+    S, _, _, C2 = fused.shape
+    return torch.empty((S, row.shape[1] // fold, C2 // 2), dtype=fused.dtype,
+                       device=fused.device)
+
+
 def patch_sample_fold(fused, row, x0p, wx, wy, wl, fold):
     """K1: see `patch_sample_fold_reference` for the contract. On CUDA the
     inputs must be contiguous, the map float32, bfloat16 or float16 at a
@@ -186,8 +194,7 @@ def patch_sample_fold(fused, row, x0p, wx, wy, wl, fold):
                       (fused.dtype, i32, i32, f32, f32, f32))
     S, R, Wp, C2 = fused.shape
     check_vector_loads("gather_fold", fused)
-    out = torch.empty((S, K // fold, C2 // 2), dtype=fused.dtype,
-                      device=fused.device)
+    out = fold_output(fused, row, fold)
     launch("gather_fold", code, fused.data_ptr(), row.data_ptr(),
            x0p.data_ptr(), wx.data_ptr(), wy.data_ptr(), wl.data_ptr(),
            out.data_ptr(), S, R * Wp * C2, Wp, C2 // 2, K, fold,

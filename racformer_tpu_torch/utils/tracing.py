@@ -3,9 +3,10 @@ phases, the model's trunk, BEV branches and head, each decoder iteration,
 and the train step's phases (the names are listed in `PERF.md` §3).
 
 `span(name, step=None, **counts)` is a context manager that does nothing
-unless the recorder is on (`enable()`) or `torch.profiler` is running:
+unless the recorder is on (`enable()`), a listener is set (`listen()`) or
+`torch.profiler` is running:
 
-- both off: it returns one shared no-op object, after a check of two
+- all off: it returns one shared no-op object, after a check of three
   module flags; no torch call, no clock read;
 - recorder on: the span is kept in memory as a `Span` (name, parent index,
   step id, start and end on `time.perf_counter_ns`, counts). A span opened
@@ -19,13 +20,18 @@ unless the recorder is on (`enable()`) or `torch.profiler` is running:
 `count(name, n)` adds to the counts of the innermost open span. The
 records stay in memory until `clear()`; whoever reads them writes them
 out. Spans nest per thread.
+
+`listen(fn)` has every span call `fn(name, entering)` at its entry and at
+its clean exit, until `listen(None)`: the decoder's CUDA-graph capture
+(`eval/graphs.py`) cuts its graphs there, so that a replay can open the
+same spans around them.
 """
 
 from __future__ import annotations
 
 import threading
 from time import perf_counter_ns
-from typing import List
+from typing import Callable, List, Optional
 
 from torch._C._profiler import _RecordFunctionFast as record_function
 from torch.autograd import profiler as _profiler
@@ -38,6 +44,7 @@ PREFIX = "racformer."  # the spans' prefix in the profiler's trace
 # which no torch op encloses, would be left unlinked under one.
 
 _recording = False
+_listener: Optional[Callable[[str, bool], None]] = None
 _records: List["Span"] = []
 _local = threading.local()
 
@@ -96,9 +103,13 @@ class Span:
             _records.append(self)
             stack.append(self)
             self.start_ns = perf_counter_ns()
+        if _listener is not None:
+            _listener(self.name, True)
         return self
 
     def __exit__(self, *exc):
+        if _listener is not None and exc[0] is None:
+            _listener(self.name, False)
         if self.index >= 0:
             self.end_ns = perf_counter_ns()
             _stack().pop()
@@ -110,9 +121,10 @@ class Span:
 
 def span(name: str, step=None, **counts):
     """The span `name` as a context manager (the shared no-op while neither
-    the recorder nor the profiler runs). `step`: the step id of a root
-    span; `counts`: its initial counts."""
-    if not (_recording or _profiler._is_profiler_enabled):
+    the recorder, a listener nor the profiler runs). `step`: the step id of
+    a root span; `counts`: its initial counts."""
+    if not (_recording or _listener is not None
+            or _profiler._is_profiler_enabled):
         return _OFF
     return Span(name, step, counts)
 
@@ -129,6 +141,13 @@ def count(name: str, n) -> None:
 def recording() -> bool:
     """Whether the recorder is on (guard a count that costs work to make)."""
     return _recording
+
+
+def listen(fn: Optional[Callable[[str, bool], None]]) -> None:
+    """Call `fn(name, entering)` at every span's entry and clean exit from
+    now on (None: stop)."""
+    global _listener
+    _listener = fn
 
 
 def enable() -> None:
