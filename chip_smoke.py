@@ -15,9 +15,10 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. card and settings: the card's name and power limit, both TF32 flags
      (set off by `racformer_tpu_torch/utils/precision.py`, as the drivers
      set them: the f32 head runs in full f32);
-  2. building the CUDA kernels K1-K4 (csrc/*.cu) from this checkout, one nvcc
-     per source, all at once, and the native data loader
-     (csrc/dataloader.cpp, g++ -ljpeg) where the toolchain allows;
+  2. building the CUDA kernels K1-K4 and the matching kernel (csrc/*.cu)
+     from this checkout, one nvcc per source, all at once, and the native
+     data loader (csrc/dataloader.cpp, g++ -ljpeg) where the toolchain
+     allows;
   3. K1 against its plain PyTorch version at the three decoder sites' flagship
      shapes, f32 and bf16 maps, ~20% of the points outside the map, each
      with its time and bound; K1 on the edges of its walk at the image site
@@ -210,6 +211,13 @@ Phases, each printed as it runs; any failure exits non-zero:
      than none); (e) the train driver 2 steps (one epoch of 4 keyframes) on
      that split with an in-training front-only eval of 2 samples: finite
      losses, launches per step as (c), a verified checkpoint.
+ 22. (run after phase 9) the train loss's matching kernel
+     (`csrc/lap_assign.cu`, `train.matching.hungarian_assign`) against the
+     host solver `assign_host` on [6, 1, 900, 64] losses' costs with 5, 32
+     and 64 valid GT rows and on the cost of one flagship train step's own
+     forward: equal bit for bit, the kernel's ms a call (CUDA events), the
+     host solver's ms, the Dijkstra steps (a counting copy of `lap_single`)
+     and the kernel's us per step of its longest problem, and the launches.
 The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
 13, 14, 16, 18, 19 and 21, the K2-K4 entries theirs on phases 8, 14, 15,
 17, 18, 19 and 21,
@@ -419,7 +427,8 @@ def phase_build():
     secs = time.perf_counter() - t0
     sources = ", ".join(sorted({f"csrc/{src}" for src, _, _ in
                                 cuda_lib.KERNELS.values()}))
-    print(f"[2] built K1-K4 ({sources}; sm_90a, one nvcc each, in parallel) "
+    print(f"[2] built K1-K4 and the matching kernel ({sources}; sm_90a, one "
+          f"nvcc each, in parallel) "
           f"in {secs:.2f} s")
     for name, log in cuda_lib.build_logs.items():
         for line in ptxas_report(log, name in POINT_TILE_KERNELS):
@@ -3724,6 +3733,121 @@ def phase_front(dev, card):
     return stats, launches
 
 
+def lap_steps(cost_gq):
+    """The Dijkstra steps `train.matching.lap_single` takes on one [G, Q]
+    cost: a copy of its loop that counts them."""
+    inf = np.float32(1.0e18)
+    G, Q = cost_gq.shape
+    cost = np.zeros((G + 1, Q + 1), np.float32)
+    cost[1:, 1:] = cost_gq
+    u = np.zeros(G + 1, np.float32)
+    v = np.zeros(Q + 1, np.float32)
+    p = np.zeros(Q + 1, np.int64)
+    steps = 0
+    for i in range(1, G + 1):
+        p[0] = i
+        minv = np.full(Q + 1, inf, np.float32)
+        way = np.zeros(Q + 1, np.int64)
+        used = np.zeros(Q + 1, bool)
+        j0 = 0
+        while p[j0] != 0:
+            steps += 1
+            used[j0] = True
+            i0 = p[j0]
+            cur = cost[i0] - u[i0] - v
+            better = ~used & (cur < minv)
+            minv = np.where(better, cur, minv)
+            way = np.where(better, j0, way)
+            masked = np.where(used, inf, minv)
+            j1 = int(np.argmin(masked))
+            delta = masked[j1]
+            u[p[used]] += delta
+            v = v - np.where(used, delta, np.float32(0.0))
+            minv = np.where(used, minv, minv - delta)
+            j0 = j1
+        while j0 != 0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    return steps
+
+
+def lap_case(tag, cost):
+    """The matching kernel on `cost` [..., Q, G] against `assign_host`:
+    printed, checked equal; returns the kernel's ms a call."""
+    from racformer_tpu_torch.train import matching
+
+    host_cost = cost.cpu().numpy()
+    got = matching.hungarian_assign(cost).cpu().numpy()
+    t0 = time.perf_counter()
+    want = matching.assign_host(host_cost)
+    host = (time.perf_counter() - t0) * 1e3
+    ms = median_ms(lambda: matching.hungarian_assign(cost), reps=10, warmup=2)
+    Q, G = cost.shape[-2:]
+    steps = [lap_steps(c.T) for c in host_cost.reshape(-1, Q, G)]
+    equal = np.array_equal(got, want)
+    print(f"[22] {tag} cost {tuple(cost.shape)}: kernel {ms:.3f} ms a call, "
+          f"assign_host {host:.1f} ms; Dijkstra steps {sum(steps)} "
+          f"(longest problem {max(steps)}): {ms * 1e3 / max(steps):.3f} us a "
+          f"step of the longest; equal to assign_host: {equal}")
+    check(equal, f"the matching kernel differs from assign_host on {tag}")
+    return ms
+
+
+def loss_cost(valid, dev, seed, layers=6, queries=900, rows=64):
+    """The loss's matching cost [layers, 1, queries, rows] on `dev` from
+    random head outputs and GT boxes, the first `valid` GT rows valid (the
+    others cost BIG)."""
+    from racformer_tpu_torch.train import losses, matching
+
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((1, rows, 9), np.float32)
+    boxes[..., :3] = rng.uniform(-50, 50, (1, rows, 3))
+    boxes[..., 3:6] = rng.uniform(0.5, 5.0, (1, rows, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (1, rows))
+    labels = rng.integers(0, 10, (1, rows))
+    mask = np.arange(rows)[None] < valid
+    cls = rng.normal(size=(layers, 1, queries, 10)).astype(np.float32)
+    box = rng.normal(size=(layers, 1, queries, 10)).astype(np.float32) * 2
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return matching.match_cost(t(cls), t(box), t(boxes)[None], t(labels)[None],
+                               t(mask)[None], losses.CODE_WEIGHTS)
+
+
+def phase_lap(cfg, dev, card):
+    """[22] The matching kernel against the host solver."""
+    from racformer_tpu_torch.train import losses, matching
+    from racformer_tpu_torch.train.__main__ import build, to_device
+
+    launches = matching.LAP_LAUNCHES
+    for valid in (5, 32, 64):
+        lap_case(f"{valid} valid rows of 64,", loss_cost(valid, dev, valid))
+    model, _, train_step, dataset, batch = build(cfg, dev, SEED, 1000)
+    costs = []
+    orig = losses.hungarian_assign
+
+    def spy(cost):
+        costs.append(cost.clone())
+        return orig(cost)
+
+    losses.hungarian_assign = spy
+    try:
+        train_step(to_device(dataset.batch(list(range(batch))), dev),
+                   torch.Generator().manual_seed(SEED))
+    finally:
+        losses.hungarian_assign = orig
+    for i, cost in enumerate(costs):
+        valid = (cost[0, :, 0, :] < matching.BIG).sum(-1).tolist()
+        lap_case(f"train step microbatch {i + 1} ({valid} valid rows),", cost)
+    n = matching.LAP_LAUNCHES - launches
+    print(f"[22] {card}: matching kernel launches {n} (the train step's "
+          f"{len(costs)} included)")
+    check(len(costs) == int(cfg.get("accumulate_steps", 1)),
+          f"{len(costs)} matchings in a train step")
+    del model
+    torch.cuda.empty_cache()
+
+
 def flagship_model(dev):
     """The flagship config (read with runpy), the model's arguments and the
     model on `dev` with seeded random weights, in eval mode."""
@@ -3773,6 +3897,7 @@ def main(argv):
     phase_train_reference(tmodel, tbatch, cfg, dev)
     del tmodel, tbatch
     torch.cuda.empty_cache()
+    phase_lap(cfg, dev, card)
     phase_train_small(dev)
     drv_launches = phase_driver()
     train_drv, drv_steady, drv_peak = phase_train_driver(cfg, card)

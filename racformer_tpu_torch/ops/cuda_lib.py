@@ -41,6 +41,8 @@ KERNELS = {
     "patch_corner_grads": ("patch_corner_grads.cu",
                            "racformer_patch_corner_grads",
                            [_CI] + [_VP] * 8 + [_CI, _I64, _CI, _CI, _CI, _VP]),
+    "lap_assign": ("lap_assign.cu", "racformer_lap_assign",
+                   [_VP] * 3 + [_CI] * 3 + [_VP]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -43,8 +43,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 @contextlib.contextmanager
 def force_reference():
-    """Route CUDA tensors of K1-K4 to their plain versions inside the block
-    (the kernel against plain comparisons of `chip_smoke.py`)."""
+    """Route CUDA tensors of K1-K4 and of the matching kernel
+    (`train.matching.hungarian_assign`) to their plain versions inside the
+    block (the kernel against plain comparisons of `chip_smoke.py`)."""
     global _force_reference
     prev, _force_reference = _force_reference, True
     try:

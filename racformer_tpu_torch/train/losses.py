@@ -16,10 +16,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import device_constant
 from ..ops.bbox_codec import normalize_bbox
 from ..ops.depth_bins import depth_to_sid_index
 from ..utils import tracing
-from .matching import assign_host, match_cost
+from .matching import hungarian_assign, match_cost
 
 CODE_WEIGHTS = (2.0, 2.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
 
@@ -75,7 +76,7 @@ def depth_loss(depth_logits, gt_depth, d_lo=1.0, d_hi=65.0, num_bins=96,
 
 def _l1_loss(preds, targets, weights, norm):
     """0.25 * code-weighted L1 over finite targets, / norm."""
-    cw = torch.tensor(CODE_WEIGHTS, device=preds.device)
+    cw = device_constant(CODE_WEIGHTS, preds.device)
     finite = torch.isfinite(targets).all(-1, keepdim=True)
     t = torch.nan_to_num(targets, nan=0.0, posinf=0.0, neginf=0.0)
     return 0.25 * ((preds.float() - t).abs() * weights * cw * finite).sum() / norm
@@ -94,7 +95,8 @@ def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
     arrays: '_matched_q' [L, B, G] int32, the query matched to each GT, and
     '_match_cost' [L, B, G] float32, that pair's cost (the match statistics
     `hooks.MatchStatsHook` dumps). Underscore keys are diagnostics, not
-    losses."""
+    losses. Only these copy to the host: on a CUDA device the loss is
+    otherwise built without waiting for the device (`hungarian_assign`)."""
     cls_scores = outs["all_cls_scores"]  # [L, B, Q, C]
     bbox_preds = outs["all_bbox_preds"]  # [L, B, Q, 10]
     L, B, Q, _ = cls_scores.shape
@@ -106,9 +108,7 @@ def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
                           gt_bboxes[None], safe_labels[None], gt_mask[None],
                           CODE_WEIGHTS)  # [L, B, Q, G]
     with tracing.span("train.matching", gt_rows=L * B * G):
-        cost_host = cost.float().cpu().numpy()  # the assignment runs on the host
-        matched_host = assign_host(cost_host)  # [L, B, G]
-    matched = torch.from_numpy(matched_host.astype(np.int64)).to(dev)
+        matched = hungarian_assign(cost)  # [L, B, G] int64 on dev
     gt_norm = normalize_bbox(gt_bboxes)  # [B, G, 10]
 
     # scatter the GT onto the matched queries; invalid GT go to a dropped
@@ -160,8 +160,7 @@ def detection_loss(outs: Dict, gt_bboxes, gt_labels, gt_mask, num_classes=10,
             total = total + losses[f"{key}_cls_dn"] + losses[f"{key}_bbox_dn"]
     losses["loss_total"] = total
     if with_match:
-        losses["_matched_q"] = matched_host.astype(np.int32)
-        losses["_match_cost"] = np.take_along_axis(
-            cost_host, matched_host[:, :, None, :].astype(np.int64), axis=2
-        )[:, :, 0, :].astype(np.float32)
+        pair_cost = torch.gather(cost, 2, matched[:, :, None, :])[:, :, 0, :]
+        losses["_matched_q"] = matched.cpu().numpy().astype(np.int32)
+        losses["_match_cost"] = pair_cost.cpu().numpy()
     return losses

@@ -2,11 +2,17 @@
 `racformer_tpu/train/matching.py`: `match_cost`, `match_cost_cartesian`,
 `_lap_single`, `hungarian_assign`).
 
-The cost is computed on the device; the assignment runs on the host on the
-detached [L, B, Q, G] cost, copied once per call, with the JAX package's
+The cost is computed on the device. The assignment is the JAX package's
 Jonker-Volgenant shortest-augmenting-path algorithm in float32, step for
 step, so the assignments are the JAX package's (the reference runs scipy on
-the host at the same place).
+the host at the same place). `lap_single` / `assign_host` run it on the host
+in numpy; on a CUDA device `hungarian_assign` launches the CUDA kernel
+`csrc/lap_assign.cu`, which runs the same steps, on the current stream and
+without waiting for the device, as the JAX package runs it in its graph.
+CPU tensors, and CUDA tensors inside `gather_kernel.force_reference()`,
+take `assign_host`. `LAP_LAUNCHES` counts the kernel's launches; the span
+open around a call (`train.matching` in the loss) counts the problems
+solved as `device_assigns` or `host_assigns`.
 """
 
 from __future__ import annotations
@@ -16,10 +22,17 @@ import math
 import numpy as np
 import torch
 
+from ..ops import device_constant
+from ..ops import gather_kernel as gk
 from ..ops.bbox_codec import normalize_bbox
+from ..utils import tracing
 
 BIG = 1.0e8
 _INF = np.float32(1.0e18)
+LAP_LAUNCHES = 0  # `hungarian_assign` calls that launched the CUDA kernel
+# the kernel keeps the state of Q + 1 columns in 256 threads' registers, at
+# most 32 columns a thread
+_MAX_COLUMNS = 32 * 256
 
 
 def match_cost(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_mask,
@@ -36,8 +49,8 @@ def match_cost(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_mask,
     neg_cost = -torch.log(1 - p + eps) * (1 - alpha) * p ** gamma
     idx = gt_labels.long()[..., None, :].expand(*p.shape[:-1], gt_labels.shape[-1])
     cls_cost = torch.gather(pos_cost - neg_cost, -1, idx) * cls_weight
-    cw = torch.as_tensor(code_weights, dtype=bbox_preds.dtype,
-                         device=bbox_preds.device)
+    cw = device_constant(tuple(code_weights), bbox_preds.device,
+                         bbox_preds.dtype)
     pred_w = bbox_preds * cw
     gt_w = normalize_bbox(gt_bboxes) * cw
     reg_cost = (pred_w[..., :, None, :] - gt_w[..., None, :, :]).abs().sum(-1)
@@ -70,8 +83,8 @@ def match_cost_cartesian(cls_scores, bbox_preds, gt_bboxes, gt_labels,
     cls_cost = torch.gather(pos_cost - neg_cost, -1, idx) * cls_weight
     pred_w, gt_w = bbox_preds, normalize_bbox(gt_bboxes)
     if code_weights is not None:
-        cw = torch.as_tensor(code_weights, dtype=bbox_preds.dtype,
-                             device=bbox_preds.device)
+        cw = device_constant(tuple(code_weights), bbox_preds.device,
+                             bbox_preds.dtype)
         pred_w, gt_w = pred_w * cw, gt_w * cw
     d = 10 if with_velo else 8
     reg_cost = (pred_w[..., :, None, :d] - gt_w[..., None, :, :d]).abs().sum(-1)
@@ -129,8 +142,45 @@ def assign_host(cost: np.ndarray) -> np.ndarray:
     return out.reshape(*batch, G)
 
 
+def _check_cost(cost: torch.Tensor) -> None:
+    """Raise unless `cost` is what both solvers take: [..., Q, G] float32,
+    contiguous, G <= Q, at most `_MAX_COLUMNS` - 1 queries."""
+    if cost.dim() < 2:
+        raise ValueError(f"hungarian_assign: cost must be [..., Q, G], got "
+                         f"{tuple(cost.shape)}")
+    if cost.dtype != torch.float32:
+        raise TypeError(f"hungarian_assign: cost must be float32, got "
+                        f"{cost.dtype}")
+    if not cost.is_contiguous():
+        raise ValueError("hungarian_assign: cost must be contiguous")
+    Q, G = cost.shape[-2:]
+    if G > Q:
+        raise ValueError(f"hungarian_assign: G={G} GT rows exceed Q={Q} "
+                         f"queries")
+    if Q + 1 > _MAX_COLUMNS:
+        raise ValueError(f"hungarian_assign: Q={Q} queries do not fit the "
+                         f"kernel's {_MAX_COLUMNS} columns of state")
+
+
 def hungarian_assign(cost: torch.Tensor) -> torch.Tensor:
-    """cost: [..., Q, G] -> matched query of each GT [..., G] (int64, on
-    the cost's device). One device-to-host copy of the detached cost."""
-    host = cost.detach().float().cpu().numpy()
-    return torch.from_numpy(assign_host(host).astype(np.int64)).to(cost.device)
+    """cost: [..., Q, G] float32, contiguous, G <= Q -> the matched query of
+    each GT [..., G] (int64, on the cost's device). On CUDA the kernel runs
+    on the current stream and nothing waits for it; on the CPU, or inside
+    `gather_kernel.force_reference()`, `assign_host` runs on a host copy."""
+    global LAP_LAUNCHES
+    _check_cost(cost)
+    *batch, Q, G = cost.shape
+    problems = math.prod(batch)
+    if gk.use_reference(cost):
+        tracing.count("host_assigns", problems)
+        host = cost.detach().cpu().numpy()
+        return torch.from_numpy(assign_host(host).astype(np.int64)).to(cost.device)
+    matched = torch.empty((*batch, G), dtype=torch.int64, device=cost.device)
+    # the transposed rows the kernel's shared memory does not hold
+    scratch = torch.empty((problems, G, Q), dtype=torch.float32,
+                          device=cost.device)
+    gk.launch("lap_assign", cost.data_ptr(), scratch.data_ptr(),
+              matched.data_ptr(), problems, Q, G, gk.current_stream(cost))
+    LAP_LAUNCHES += 1
+    tracing.count("device_assigns", problems)
+    return matched
