@@ -1,60 +1,61 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (`racformer_tpu_torch`) on one NVIDIA GPU.
+"""Card check of the PyTorch port (`racformer_tpu_torch`) on NVIDIA GPUs.
 
-    python3 chip_smoke.py                   # needs one CUDA card
-    python3 chip_smoke.py --profile FILE    # also profiles three steady
-                                            # streaming steps and writes the
-                                            # torch.profiler table to FILE,
-                                            # and three 4-stream steps
-    python3 chip_smoke.py --train-profile FILE  # the same for one train step
+    python3 chip_smoke.py                   # needs at least one CUDA card
 
-On a machine of several cards phases 15 and 16 run at world 1 and then on
-every card, and print the scaling between the two.
+It checks: each hand kernel against its plain version, the port's paths
+on the card against their plain versions and the CPU, launch counts, and
+the drivers end to end. It times only the kernels alone at their sites
+(ms, plain ms, bound, share, library call) and the matching kernel
+against the host solver; step rates, idle shares, peaks and splits are
+the benchmark's (`h100_bench/run.py`, `--trace 1`) and
+`racformer_tpu_torch.tools.profile_gpu`'s.
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. card and settings: the card's name and power limit, both TF32 flags
      (set off by `racformer_tpu_torch/utils/precision.py`, as the drivers
      set them: the f32 head runs in full f32);
   2. building the CUDA kernels K1-K4 and the matching kernel (csrc/*.cu)
-     from this checkout, one nvcc per source, all at once, and the native
-     data loader (csrc/dataloader.cpp, g++ -ljpeg) where the toolchain
-     allows;
+     from this checkout, one nvcc per source, all at once, each kernel's
+     registers and spills, and the native data loader
+     (csrc/dataloader.cpp, g++ -ljpeg) where the toolchain allows;
   3. K1 against its plain PyTorch version at the three decoder sites' flagship
      shapes, f32 and bf16 maps, ~20% of the points outside the map, each
-     with its time and bound; K1 on the edges of its walk at the image site
-     (one output per slab, a ragged tile, folds 1, 3, 5 and 33, the last
-     column and row, every point on the zero border, zero weights, the
-     clustered points);
+     timed with its plain version and its bound; K1 on the edges of its
+     walk at the image site (one output per slab, a ragged tile, folds 1,
+     3, 5 and 33, the last column and row, every point on the zero border,
+     zero weights, clustered points);
   4. the streaming eval path: the flagship model of the port's config
      racformer_tpu_torch/configs/racformer_r50_nuimg_704x256_f8.py with
      seeded random weights, fed seeded synthetic ring-camera frames through
      `StreamingEvaluator.step`; K1 must launch 18 times per step (3 sites x 6
-     decoder iterations); K1 on one step's own inputs at each site (their
-     alignment, against the plain version, timed, the distinct-column
-     share); with --profile, K1's device ms in the step by kernel name;
+     decoder iterations); the decoder replayed as CUDA graphs from the
+     second step, and the last window's replay bitwise its eager decode;
+     on one more step, the in-view share of the image sample points and K1
+     on the step's own inputs at each site (their alignment, against the
+     plain version, the distinct-column share);
   5. the last window decoded again with K1 routed to the plain version;
   6. a small config run on the card (kernel) and on the CPU (plain version);
   7. K2, K3 and K4 against their plain versions at the training path's
      flagship shapes (image site: 32 slabs x 18,480 points x 4 levels; BEV
      sites: 8 slabs x 123,200 points), f32 and bf16 maps, ~20% of the points
-     outside the map; each with its time, its bound (bytes counted from the
-     points' unique map columns, or operations) and the time of one PyTorch
-     call of the same function (`F.grid_sample`,
+     outside the map; each timed with its plain version, its bound (bytes
+     counted from the points' unique map columns, or operations) and one
+     PyTorch call of the same function (`F.grid_sample`,
      `aten.grid_sampler_2d_backward`); K3's bucketing against its plain
-     version, its largest bucket, and a clustered case at the image site
-     (90% of the points in 5% of the rows); K2 and K4 on the edges of their
-     point tiling at the image site (K = 1 and 33, the last column and row,
-     every point on the zero border, the clustered points);
+     version, and a clustered case at the image site (90% of the points in
+     5% of the rows); K2 and K4 on the edges of their point tiling at the
+     image site (K = 1 and 33, the last column and row, every point on the
+     zero border, the clustered points);
   8. the training path: the flagship config's train step (batch 2 in 2
      microbatches, seeded random weights, batches of the port's
      `SyntheticDataset`) for 5 steps through the train driver's `build`;
      per step K2 must launch 72 times (3 sites x 6 iterations x 2 microbatches,
      twice: the forward and the checkpointed recompute), K3 and K4 36 times;
      losses and gradients finite, trainable parameters moved, frozen ones not;
-     with --train-profile, K2's, K3's and K4's device ms in the step by
-     kernel name; K2, K3 and K4 on one step's own inputs at each map shape
-     against their plain versions, timed, with the points' row, column and
-     distinct-column statistics;
+     K2, K3 and K4 on one step's own inputs at each map shape against their
+     plain versions, with the points' row, column and distinct-column
+     statistics;
   9. one flagship train step with the kernels and one with their plain
      versions, from equal weights, batch and draws: losses and gradients
      compared;
@@ -63,74 +64,65 @@ Phases, each printed as it runs; any failure exits non-zero:
  11. (run after phase 6) the multi-stream protocol: 4 ring-camera streams in
      lockstep through `StreamingEvaluator.step_batch` for 10 steps, stream 1
      resetting at step 4 and stream 2 at step 7 while the others keep their
-     windows; K1 must launch 18 times per step, as at B = 1; steady ms per
-     step, frames/s, the feature cache and the peak memory (with --profile,
-     the device-busy share); K1 on one 4-stream step's own inputs at each
-     site; each stream against its own `step()` sequence (head outputs
-     within phase 5's bound, decoded scores and boxes matched); B = 1
-     `step_batch` against `step()` bit for bit, with deterministic
+     windows; K1 must launch 18 times per step, as at B = 1; K1 on one
+     4-stream step's own inputs at each site, timed with its plain version
+     and its bound; each stream against its own `step()` sequence (head
+     outputs within phase 5's bound, decoded scores and boxes matched);
+     B = 1 `step_batch` against `step()` bit for bit, with deterministic
      algorithms;
  12. (run after phase 11) the offline protocol: `OfflineEvaluator` at batch
-     1 over 3 samples of the port's SyntheticDataset at full width; samples/s,
-     finite decoded boxes, 18 K1 launches per sample;
- 13. (run last) the eval driver `python -m racformer_tpu_torch.eval`, in
-     process, on a split it writes in the nuScenes info layout (4 scenes x 2
-     keyframes, 6 cameras of 1600x900 JPEG, sweeps, radar, GT) in the three
-     protocols (--streaming --streams 4, --streaming, offline): each prints
-     its samples/s and the metrics; the 4-stream and single-stream
-     predictions matched sample by sample; the image-decode path printed.
- 14. (run last) the train driver `python -m racformer_tpu_torch.train`, in
-     process, on the flagship config with --synthetic (4 samples, 2 steps per
-     epoch, an in-training offline eval of 2 samples at every epoch, the
-     metrics logged every step): run A --max-steps 2 --ema --match-stats,
-     run B --max-steps 4 --resume --ema --match-stats in the same work dir,
-     then the eval driver on the work dir (--checkpoint, offline, 2
-     samples); each checkpoint verified, run B's restored state bitwise the
-     one run A saved (by digest), one val record per epoch, a best
-     checkpoint, match statistics per decoder layer and epoch, K2 / K3 / K4
-     at phase 8's counts in every step and K1 at 18 per eval sample, the eval
-     driver's predictions bitwise those of the in-memory model that saved
-     the checkpoint (deterministic algorithms); then 2 steps on a
+     1 over 3 samples of the port's SyntheticDataset at full width: finite
+     decoded boxes, 18 K1 launches per sample;
+ 13. the eval driver `python -m racformer_tpu_torch.eval`, in process, on a
+     split it writes in the nuScenes info layout (4 scenes x 2 keyframes, 6
+     cameras of 1600x900 JPEG, sweeps, radar, GT) in the three protocols
+     (--streaming --streams 4, --streaming, offline): each prints its eval
+     line and the metrics; the 4-stream and single-stream predictions
+     matched sample by sample; the image-decode path printed.
+ 14. the train driver `python -m racformer_tpu_torch.train`, in process, on
+     the flagship config with --synthetic (4 samples, 2 steps per epoch, an
+     in-training offline eval of 2 samples at every epoch, the metrics
+     logged every step): run A --max-steps 2 --ema --match-stats, run B
+     --max-steps 4 --resume --ema --match-stats in the same work dir, then
+     the eval driver on the work dir (--checkpoint, offline, 2 samples);
+     each checkpoint verified, run B's restored state bitwise the one run A
+     saved (by digest), one val record per epoch, a best checkpoint, match
+     statistics per decoder layer and epoch, K2 / K3 / K4 at phase 8's
+     counts in every step and K1 at 18 per eval sample, the eval driver's
+     predictions bitwise those of the in-memory model that saved the
+     checkpoint (deterministic algorithms); then 2 steps on a
      nuScenes-layout training split (phase 13's writer, JPEG decode,
-     ida_aug, bev_aug) through the prefetching loader. Prints each step's
-     ms, the loader's wait, each save's seconds and bytes, each eval's
-     seconds and the peak memory, beside the card's name and power limit.
- 15. (run last) the train driver under torchrun, one process per card, in
-     one torchrun call (`python -m torch.distributed.run --standalone
+     ida_aug, bev_aug) through the prefetching loader.
+ 15. the train driver under torchrun, one process on every card, in one
+     torchrun call (`python -m torch.distributed.run --standalone
      --nproc_per_node=<cards> chip_smoke.py --worker train ...`: each rank
      calls the driver's `main` with --distributed --synthetic in process):
-     run A --max-steps 3 with its step 3 profiled, run B --resume to step
-     4; each rank's result gives the world, the global batch, the
-     synchronized ms of each step, the launches of each step (K2 / K3 / K4
-     at phase 8's counts on every rank), the BatchNorm all-reduces per
-     microbatch and the peak memory; rank 0 alone saves (verified) and
-     writes metrics.jsonl; every rank of run B restored the saved digest;
-     prints step 2's ms and samples/s and the share of step 3 in NCCL
-     kernels. Then, in the same processes, the small config of phase 10
-     in f32 (one row pair per rank) against one process at the same global
-     batch, both under deterministic algorithms: first-step
-     losses within 1e-5 relative; at one rank the parameters after the step
-     within 1e-4 of their max, at more ranks the gradients by direction
-     (cosine >= 0.999, global relative difference <= 1e-3: rounding in the
-     statistics flips the sign of near-zero gradients, and a first AdamW
-     step moves those by 2 lr);
- 16. (run last) the eval driver under torchrun (`--worker eval`, under
+     run A --max-steps 3, run B --resume to step 4; on every rank the
+     launches of each step (K2 / K3 / K4 at phase 8's counts) and the
+     BatchNorm all-reduces per microbatch; rank 0 alone saves (verified) and
+     writes metrics.jsonl; every rank of run B restored the saved digest.
+     Then, in the same processes, the small config of phase 10 in f32 (one
+     row pair per rank) against one process at the same global batch, both
+     under deterministic algorithms: first-step losses within 1e-5
+     relative; at one rank the parameters after the step within 1e-4 of
+     their max, at more ranks the gradients by direction (cosine >= 0.999,
+     global relative difference <= 1e-3: rounding in the statistics flips
+     the sign of near-zero gradients, and a first AdamW step moves those by
+     2 lr);
+ 16. the eval driver under torchrun on every card (`--worker eval`, under
      deterministic algorithms), offline and --streaming --streams 4 on 8
      synthetic samples in one torchrun call, against the same driver in
      this process: the gathered predictions bitwise at one rank, within
-     phase 5's bounds at more; K1 launched on every rank; samples/s and
-     frames/s;
- 17. (run last) the decoder's five remat policies (full, dots,
-     dots_no_batch, save_sampled, save_bev), 2 flagship train steps each on
-     the same batches and draws, on one model whose seeded weights and
-     optimizer state are restored before each policy: each step's ms, the
-     peak memory, launches per step (K2 72 / 72 / 72 / 36 / 48, K3 and K4
-     36), step 1's losses
-     and gradients (from the same seeded weights) against full's within
-     phase 9's bound. A policy that does not fit in the card's memory fails
-     the run.
- 18. (run last) the VoD config (racformer_tpu_torch/configs/racformer_vod.py:
-     1 camera, 1 frame, Q = 600, 3 classes) unreduced, on a split it writes
+     phase 5's bounds at more; K1 launched on every rank;
+ 17. the decoder's five remat policies (full, dots, dots_no_batch,
+     save_sampled, save_bev), 2 flagship train steps each on the same
+     batches and draws, on one model whose seeded weights and optimizer
+     state are restored before each policy: launches per step (K2 72 / 72
+     / 72 / 36 / 48, K3 and K4 36), step 1's losses and gradients (from the
+     same seeded weights) against full's within phase 9's bound. A policy
+     that does not fit in the card's memory fails the run.
+ 18. the VoD config (racformer_tpu_torch/configs/racformer_vod.py: 1
+     camera, 1 frame, Q = 600, 3 classes) unreduced, on a split it writes
      in the KITTI-format VoD layout (8 frames of 1936x1216 JPEG with the
      VoD camera's P2, radar .bin files, GT with DontCare): the train driver
      for one epoch of 4 steps (batch 2 in 2 microbatches) with its
@@ -141,72 +133,61 @@ Phases, each printed as it runs; any failure exits non-zero:
      (offline, one stream) and per 4-stream step, K2 72, K3 and K4 36 per
      train step, as the flagship's (neither count depends on cameras or
      frames); K1 on a VoD eval step's own inputs and K2-K4 on a VoD train
-     step's, against their plain versions, timed, with their bounds;
-     `tools.profile_gpu`'s category split of one eval and one train step;
-     then `tools.vod_smoke` (the original's fixture and tiny widths, 10 of
-     its 40 epochs: 60 steps): every step's grad_norm finite (the losses
-     are nan_to_num'd, as the JAX package's are) and the last fifth's mean
+     step's, against their plain versions, timed, with their bounds; then
+     `tools.vod_smoke` (the original's fixture and tiny widths, 10 of its
+     40 epochs: 60 steps): every step's grad_norm finite (the losses are
+     nan_to_num'd, as the JAX package's are) and the last fifth's mean
      loss below the first fifth's, the untrained and trained mAP3D_all /
      mAP3D_corridor printed; then K1-K4 at the smoke's widths (16 channels
      per group) on its fixture's own inputs, one train step and one eval
      step of the model its driver builds (and one eval step on a frame of
      the VoD-layout split, where the image points are in view), against
-     their plain versions, timed, with their bounds.
-     Prints each step's ms, the loader's wait, the checkpoint's bytes, each
-     protocol's samples/s and the peak memory beside the card's name and
-     power limit.
- 19. (run after 18) the model's `head_dtype` and `fused_gather` fields, read
-     from the flagship config through `config_kwargs`, on phase 4's seeded
-     weights and frames: (a) 5 streaming steps with the f32 head and 5
-     with `head_dtype=bfloat16` (K1 18 a step), each step's ms, device
-     busy and GEMM / convolution device ms (`tools.profile_gpu`'s
-     categories) of one more step, and the peak memory; the bf16 head's
-     outputs float32 and finite and, on one window, within the JAX
-     package's drift alarm of the f32 head's (median |d box| < 0.5); (b)
-     2 train steps with the f32 head, then 2 with the bf16 head, through
-     the train driver's `build` (K2 72, K3 and K4 36 a step): losses,
-     grad_norm and gradients finite, every parameter still float32, each
-     step's ms and the peak, then K2-K4 on one bf16-head step's own inputs
-     against their plain versions;
-     (c) 5 streaming steps with `fused_gather=False` (no K1, K2 18 a
-     step) and its head outputs on one window within phase 5's bound of
-     the folded step's; (d) VoVNet V-99-eSE on the flagship's per-frame
-     trunk input (6 x 256 x 704) in f32 and bf16 (the four output shapes,
-     the bf16 relative error per stage, ms, device busy, GEMM / conv ms
-     and peak) and BEVResNet +
-     FPNLSS on a 128^2 BEV of 256 channels (shapes, ms).
- 20. (run last) float16 maps: the flagship config with `model.trunk_dtype`
-     and `decoder.gather_dtype` float16 through `config_kwargs`, seeded
-     random weights: (a) K1 at the three eval sites and K2-K4 at the three
-     train sites of the flagship shapes, each against its plain version
+     their plain versions.
+ 19. the model's `head_dtype` and `fused_gather` fields, read from the
+     flagship config through `config_kwargs`, on phase 4's seeded weights
+     and frames: (a) 5 streaming steps with the f32 head and 5 with
+     `head_dtype=bfloat16` (K1 18 a step); the bf16 head's outputs float32
+     and finite and, on one window, within the JAX package's drift alarm
+     of the f32 head's (median |d box| < 0.5); (b) 2 train steps with the
+     f32 head, then 2 with the bf16 head, through the train driver's
+     `build` (K2 72, K3 and K4 36 a step): losses, grad_norm and gradients
+     finite, every parameter still float32, then K2-K4 on one bf16-head
+     step's own inputs against their plain versions; (c) 5 streaming steps
+     with `fused_gather=False` (no K1, K2 18 a step, decoded eagerly) and
+     its head outputs on one window within phase 5's bound of the folded
+     step's; (d) VoVNet V-99-eSE on the flagship's per-frame trunk input
+     (6 x 256 x 704) in f32 and bf16 (the four output shapes, the bf16
+     relative error per stage) and BEVResNet + FPNLSS on a 128^2 BEV of
+     256 channels (shapes).
+ 20. float16 maps: the flagship config with `model.trunk_dtype` and
+     `decoder.gather_dtype` float16 through `config_kwargs`, seeded random
+     weights: (a) K1 at the three eval sites and K2-K4 at the three train
+     sites of the flagship shapes, each against its plain version
      (`force_reference()`) on the same inputs, at phases 3's and 7's
      tolerances scaled to float16's epsilon (one output rounding: rtol and
      atol 1.25e-3 where bf16 takes 1e-2; K3 2^-10 |ref| where bf16 takes
-     2^-7), each with its ms, plain ms, bound, share and library call, and
-     timed in turns with its bf16 instance on the same points; (b)
-     5 streaming steps (K1 18 a step; step ms, device busy, peak, the float16
-     maps' largest |value|) and the last window decoded with K1 and with its
-     plain version, within phase 5's bound; (c) one train step with K2-K4
-     (72, 36, 36) and one with their plain versions from equal weights,
-     batch and draws, within phase 9's bound. If the seeded weights
-     overflow float16 on both paths of (b) or (c), the run prints it and
-     goes on (the kernels are held at the op level in (a)); an overflow on
-     one path fails.
- 21. (run last) the fork's front-only configuration unreduced (the port's
-     copy of racformer_r50_nuimg_704x256_f8_3cam_3rad.py: 3 front cameras,
-     3 radars, 8 frames, 256x704, Q = 900, C = 256, 6 layers, D = 96, BEV
+     2^-7), each with its ms, plain ms, bound, share and library call; (b)
+     5 streaming steps (K1 18 a step; the float16 maps' largest |value|)
+     and the last window decoded with K1 and with its plain version,
+     within phase 5's bound; (c) one train step with K2-K4 (72, 36, 36) and
+     one with their plain versions from equal weights, batch and draws,
+     within phase 9's bound. If the seeded weights overflow float16 on both
+     paths of (b) or (c), the run prints it and goes on (the kernels are
+     held at the op level in (a)); an overflow on one path fails.
+ 21. the fork's front-only configuration unreduced (the port's copy of
+     racformer_r50_nuimg_704x256_f8_3cam_3rad.py: 3 front cameras, 3
+     radars, 8 frames, 256x704, Q = 900, C = 256, 6 layers, D = 96, BEV
      128^2, `eval_front_only`), seeded random weights: (a) K1 at its three
      eval sites and K2-K4 at its three train sites (the image map of 3 x
      rcat rows), bf16 maps, against their plain versions at phases 3's and
      7's tolerances, each with its ms, plain ms, bound, share and library
-     call; (b) 5 streaming steps (K1 18 a step; step ms, device busy, idle
-     share, peak) and the last window against K1's plain version (phase
-     5's bound); (c) one train step (batch 2 in 2 microbatches; K2 / K3 / K4
-     72 / 36 / 36) against one with the plain versions (phase 9's bound),
-     its ms and peak; (d) the eval driver with the _mini config on phase
-     13's split (its reader takes the three front cameras of six),
-     --streaming and offline: finite predictions, the eval line and the
-     metrics, K1 18 a sample, and the front-only filter acting (the GT
+     call; (b) 5 streaming steps (K1 18 a step) and the last window against
+     K1's plain version (phase 5's bound); (c) one train step (batch 2 in
+     2 microbatches; K2 / K3 / K4 72 / 36 / 36) against one with the plain
+     versions (phase 9's bound); (d) the eval driver with the _mini config
+     on phase 13's split (its reader takes the three front cameras of
+     six), --streaming and offline: finite predictions, the eval line and
+     the metrics, K1 18 a sample, and the front-only filter acting (the GT
      boxes the metrics count with the filter, fewer than without and more
      than none); (e) the train driver 2 steps (one epoch of 4 keyframes) on
      that split with an in-training front-only eval of 2 samples: finite
@@ -222,7 +203,8 @@ The K1 entry of the kernels line counts its launches on phases 4, 11, 12,
 13, 14, 16, 18, 19 and 21, the K2-K4 entries theirs on phases 8, 14, 15,
 17, 18, 19 and 21,
 each counted from 0 just before the phase's run (phases 15 and 16 count in
-their processes and report back, summed over the ranks); the four
+their processes and report back, summed over the ranks); the times of its
+first four entries are phases 3's and 7's bf16 sites summed; the four
 `*_float16` entries hold phase 20's float16 runs: times, bounds and errors
 summed over (a)'s sites, launches from (b)'s steps and (c)'s kernel step.
 No module of JAX or of the JAX package may have been imported by the end.
@@ -422,24 +404,18 @@ def phase_card():
 def phase_build():
     from racformer_tpu_torch.ops import cuda_lib
 
-    t0 = time.perf_counter()
     cuda_lib.build_all()
-    secs = time.perf_counter() - t0
     sources = ", ".join(sorted({f"csrc/{src}" for src, _, _ in
                                 cuda_lib.KERNELS.values()}))
     print(f"[2] built K1-K4 and the matching kernel ({sources}; sm_90a, one "
-          f"nvcc each, in parallel) "
-          f"in {secs:.2f} s")
+          f"nvcc each, in parallel)")
     for name, log in cuda_lib.build_logs.items():
         for line in ptxas_report(log, name in POINT_TILE_KERNELS):
             print(f"[2] ptxas {name} {line}")
     from racformer_tpu_torch.data import native
 
-    t0 = time.perf_counter()
-    built = native.available()
     print(f"[2] native data loader (csrc/dataloader.cpp, g++ -ljpeg): "
-          + (f"built in {time.perf_counter() - t0:.2f} s at "
-             f"{native.library_path()}" if built else
+          + (f"built at {native.library_path()}" if native.available() else
              "not available (no g++ or libjpeg to build or load it): "
              "images decode with PIL"))
 
@@ -554,7 +530,7 @@ def fold_edge_cases(fmap, pts, fold, gen):
     outputs that leave a ragged warp tile, other folds (1, 3, 5, and 33,
     whose outputs span two windows of 32 points), points at the last column
     and the last row, every point on the zero border (exactly zero), points
-    of zero weight, and clustered points (timed)."""
+    of zero weight, and clustered points."""
     from racformer_tpu_torch.ops import gather_kernel as gk
 
     S, R, Wp, _ = fmap.shape
@@ -592,38 +568,21 @@ def fold_edge_cases(fmap, pts, fold, gen):
             check(not want.any(), "K1's plain version is not zero on the zero border")
             ok = ok and not got.any()
             tol = "exactly zero"
-        timing = ""
-        if case.startswith("clustered"):
-            t_k = median_ms(lambda: gk.patch_sample_fold(m, *hot, f), reps=10,
-                            warmup=2)
-            t_b, by = bound_ms("gather_fold", tuple(m.shape), hot,
-                               m.element_size(), f)
-            timing = (f"; kernel {t_k:.4f} ms, bound {t_b:.4f} ms ({by}), "
-                      f"share {t_b / t_k:.3f}")
         print(f"[3] K1 image, {case} {str(m.dtype):14s}: max_abs_err {err:.3g} "
-              f"({tol}) {'ok' if ok else 'FAIL'}{timing}")
+              f"({tol}) {'ok' if ok else 'FAIL'}")
         check(ok, f"K1 disagrees with its plain version: {case}, {m.dtype}")
 
 
-def phase_main(model, dev, profile_path):
+def phase_main(model):
     from racformer_tpu_torch.eval import StreamingEvaluator, graphs
     from racformer_tpu_torch.ops import gather_kernel as gk
 
-    frames = ring_frames(model, STEPS + 4, 1536, SEED)
+    frames = ring_frames(model, STEPS + 1, 1536, SEED)
     ev = StreamingEvaluator(model)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, outs = [], []
     gk.LAUNCHES = 0
     replays = graphs.GRAPH_REPLAYS
-    for frame in frames[:STEPS]:
-        t0 = time.perf_counter()
-        out = ev.step(frame, blocking=False)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
+    outs = [ev.step(frame, blocking=False) for frame in frames[:STEPS]]
     launches = gk.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
     check(launches == 18 * STEPS,
           f"K1 launched {launches} times in {STEPS} steps, expected {18 * STEPS}")
     (plan,) = ev.graphs.plans.values()
@@ -639,7 +598,6 @@ def phase_main(model, dev, profile_path):
         check(bool(torch.isfinite(out["scores"]).all())
               and bool(torch.isfinite(out["bboxes"]).all()),
               "non-finite scores or boxes")
-    steady = statistics.median(step_ms[2:])
     print(f"[4] {STEPS} streaming steps: K1 launches {launches} "
           f"({launches // STEPS} per step); the decoder replayed as "
           f"{plan.graphs} CUDA graphs from step 2, the last window's replay "
@@ -647,11 +605,6 @@ def phase_main(model, dev, profile_path):
           f"decode; outputs finite, boxes "
           f"{tuple(outs[-1]['bboxes'].shape)}, valid boxes in last step "
           f"{int(outs[-1]['valid'].sum())}")
-    print(f"[4] step ms: first {step_ms[0]:.2f}, second {step_ms[1]:.2f}, "
-          f"steady median {steady:.2f} (min {min(step_ms[2:]):.2f}, "
-          f"max {max(step_ms[2:]):.2f}) over steps 3..{STEPS}")
-    print(f"[4] peak device memory (max_memory_allocated): {peak} B "
-          f"({peak / 2**30:.2f} GiB)")
 
     # on one more step: the share of image sample points that some camera
     # sees, and K1's inputs at each site in the first decoder iteration
@@ -660,11 +613,8 @@ def phase_main(model, dev, profile_path):
     print(f"[4] in-view share of image sample points per decoder iteration: "
           f"{', '.join(f'{s:.3f}' for s in seen)}")
     check(min(seen) > 0.05, "image sample points are (almost) never in view")
-    step_fold_inputs(caught, "[4]")
-
-    if profile_path:
-        profile_steps(ev, frames[STEPS + 1:STEPS + 4], steady, profile_path)
-    return ev, steady, peak, launches
+    step_fold_inputs(caught, "[4]", timed=False)
+    return ev, launches
 
 
 def replay_equals_eager(model, ev):
@@ -731,15 +681,14 @@ def capture_fold_inputs(run):
     return seen, caught
 
 
-def step_fold_inputs(caught, tag):
+def step_fold_inputs(caught, tag, timed):
     """K1 on its own inputs from one eval step's first decoder iteration, at
     each site: the maps' 16-byte alignment (the wrapper raises on others),
-    the kernel against its plain version, timed, and the share of the
-    column reads that go to distinct columns (what the bound counts).
-    Returns {site: (ms, bound ms)}."""
+    the kernel against its plain version and the share of the column reads
+    that go to distinct columns (what the bound counts); when `timed`, the
+    kernel's and the plain version's ms and the bound."""
     from racformer_tpu_torch.ops import gather_kernel as gk
 
-    times = {}
     for site, (ptrs, args) in caught.items():
         fmap, pts, fold = args[0], args[1:6], args[6]
         shape = tuple(fmap.shape)
@@ -747,105 +696,23 @@ def step_fold_inputs(caught, tag):
               f"K1's inputs at the {site} site are not 16-byte aligned")
         kern = functools.partial(gk.patch_sample_fold, *args)
         ok, err, tol = fold_ok(kern(), gk.patch_sample_fold_reference(*args))
-        t_k = median_ms(kern, reps=10, warmup=2)
-        t_p = median_ms(lambda: gk.patch_sample_fold_reference(*args), reps=3,
-                        warmup=1)
-        t_b, by = bound_ms("gather_fold", shape, pts, fmap.element_size(), fold)
-        times[site] = (t_k, t_b)
+        timing = ""
+        if timed:
+            t_k = median_ms(kern, reps=10, warmup=2)
+            t_p = median_ms(lambda: gk.patch_sample_fold_reference(*args),
+                            reps=3, warmup=1)
+            t_b, by = bound_ms("gather_fold", shape, pts, fmap.element_size(),
+                               fold)
+            timing = (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                      f"{t_b:.4g} ms ({by}), share {t_b / t_k:.3g}")
         n = pts[0].numel()
         print(f"{tag} K1 on the step's inputs, {site} map {shape} {fmap.dtype} "
               f"K={pts[0].shape[1]} fold={fold}, map at {ptrs[0]:#x} "
               f"(16-byte aligned): max_abs_err {err:.3g} ({tol}) "
-              f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} "
-              f"ms, bound {t_b:.4g} ms ({by}), share {t_b / t_k:.3g}; distinct "
-              f"columns per column read "
-              f"{unique_columns(shape, pts[0], pts[1]) / (2 * n):.3f}")
+              f"{'ok' if ok else 'FAIL'}{timing}; distinct columns per column "
+              f"read {unique_columns(shape, pts[0], pts[1]) / (2 * n):.3f}")
         check(ok, f"K1 disagrees with its plain version on the step's {site} "
                   f"inputs")
-    return times
-
-
-def profiled(fn, runs):
-    """Run fn() `runs` times under torch.profiler. Returns (key_averages,
-    device ms per run: kernels and copies, the table's 'Self CUDA' total)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
-    return events, busy / 1e3 / runs
-
-
-def host_ms(fn, runs=5):
-    """Median host-clock ms of fn() bracketed by synchronizes."""
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def k1_in_step(events, runs):
-    """K1's device ms and launches per run in a profile's key averages."""
-    from torch.autograd import DeviceType
-
-    k1 = [e for e in events if e.device_type == DeviceType.CUDA
-          and "gather_fold_kernel" in e.key]
-    return (f"{sum(e.self_device_time_total for e in k1) / runs / 1e3:.3f} "
-            f"ms/step device over {sum(e.count for e in k1) // runs} "
-            f"launches/step of gather_fold_kernel")
-
-
-def profile_steps(ev, frames, steady_ms, path):
-    """Device time of whole steps and of the two stages, against host time;
-    the op table goes to `path`."""
-    from racformer_tpu_torch.model import preprocess_images
-
-    it = iter(frames)
-    events, busy = profiled(lambda: ev.step(next(it), blocking=False), 3)
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(
-        events.table(sort_by="self_cuda_time_total", row_limit=80))
-    print(f"[4] profile of 3 steps: device busy {busy:.2f} ms/step against the "
-          f"unprofiled steady step {steady_ms:.2f} ms: idle share "
-          f"{max(0.0, 1 - busy / steady_ms):.3f} "
-          f"(table: {path})")
-    ops = sorted((e for e in events if e.key.startswith("aten::")),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    for e in ops:
-        print(f"[4]   {e.self_device_time_total / 3e3:8.3f} ms/step device  "
-              f"{e.count // 3:5d} calls/step  {e.key}")
-    print(f"[4]   aten ops launched per step: "
-          f"{sum(e.count for e in events if e.key.startswith('aten::')) // 3}")
-    print(f"[4]   K1 in the step: {k1_in_step(events, 3)}, beside device busy "
-          f"{busy:.2f} ms/step")
-
-    # the two stages on the cached window: encode_frame, decode_window
-    model, dev = ev.model, ev.device
-    f = frames[0]
-    t = {k: torch.as_tensor(np.asarray(f[k])).to(dev)[None] for k in (
-        "imgs", "radar_points", "radar_mask", "radar_depth", "radar_rcs",
-        "img2lidar")}
-    enc_args = (preprocess_images(t["imgs"]), t["radar_points"],
-                t["radar_mask"], t["radar_depth"], t["radar_rcs"], t["img2lidar"])
-    feat_cat, lss, radar, l2i, ts = ev.cache
-    dec_args = (feat_cat, lss, radar, l2i, ts[:, :1] - ts)
-    for name, fn in (("encode_frame", lambda: model.encode_frame(*enc_args)),
-                     ("decode_window", lambda: model.decode_window(*dec_args))):
-        wall = host_ms(fn)
-        _, dev_ms = profiled(fn, 3)
-        print(f"[4] stage {name}: host {wall:.2f} ms, device busy {dev_ms:.2f} "
-              f"ms, idle share {max(0.0, 1 - dev_ms / wall):.3f}")
 
 
 def phase_reference(model, ev):
@@ -987,7 +854,7 @@ def multistream_tapes(model):
     return tapes
 
 
-def phase_multistream(model, dev, profile_path):
+def phase_multistream(model):
     """B = 4 lockstep streams through `step_batch` at full width."""
     from racformer_tpu_torch.eval import StreamingEvaluator
     from racformer_tpu_torch.ops import gather_kernel as gk
@@ -998,19 +865,11 @@ def phase_multistream(model, dev, profile_path):
     resets_at = lambda t: [tapes[b][1][t] for b in range(B)]
     ev = StreamingEvaluator(model)
     heads = HeadOutputs()
-    torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, outs = [], []
     gk.LAUNCHES = 0
-    for t in range(MS_STEPS):
-        t0 = time.perf_counter()
-        out = ev.step_batch(frames_at(t), resets_at(t), blocking=False)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
+    outs = [ev.step_batch(frames_at(t), resets_at(t), blocking=False)
+            for t in range(MS_STEPS)]
     launches = gk.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
     batched = list(heads.outs)
     check(launches == 18 * MS_STEPS,
           f"K1 launched {launches} times in {MS_STEPS} B = {B} steps, expected "
@@ -1022,35 +881,16 @@ def phase_multistream(model, dev, profile_path):
         check(bool(torch.isfinite(out["scores"]).all())
               and bool(torch.isfinite(out["bboxes"]).all()),
               "non-finite scores or boxes")
-    steady = statistics.median(step_ms[2:])
-    cache = sum(x.numel() * x.element_size() for x in ev.cache)
     print(f"[11] {MS_STEPS} lockstep steps of {B} streams (resets at (stream, "
           f"step) {sorted(MS_RESETS)}): K1 launches {launches} "
           f"({launches // MS_STEPS} per step, as at B = 1); outputs finite, "
           f"boxes {tuple(outs[-1]['bboxes'].shape)}")
-    print(f"[11] step ms: first {step_ms[0]:.2f}, second {step_ms[1]:.2f}, "
-          f"steady median {steady:.2f} (min {min(step_ms[2:]):.2f}, max "
-          f"{max(step_ms[2:]):.2f}) over steps 3..{MS_STEPS}: "
-          f"{B * 1e3 / steady:.2f} frames/s")
-    print(f"[11] feature cache {cache} B ({cache / B / 2**30:.3f} GiB per "
-          f"stream); peak device memory (max_memory_allocated) {peak} B "
-          f"({peak / 2**30:.2f} GiB)")
 
     # K1 on one more B = 4 step's own inputs, at the three sites
     _, caught = capture_fold_inputs(lambda: ev.step_batch(
         frames_at(MS_STEPS), [False] * B, blocking=False))
-    step_fold_inputs(caught, "[11]")
-    del caught
-    if profile_path:
-        fr = frames_at(MS_STEPS)
-        events, busy = profiled(lambda: ev.step_batch(fr, [False] * B,
-                                                      blocking=False), 3)
-        print(f"[11] profile of 3 steps: device busy {busy:.2f} ms/step against "
-              f"the unprofiled steady step {steady:.2f} ms: idle share "
-              f"{max(0.0, 1 - busy / steady):.3f}; aten ops launched per step "
-              f"{sum(e.count for e in events if e.key.startswith('aten::')) // 3}"
-              f"; K1 in the step: {k1_in_step(events, 3)}")
-    del ev
+    step_fold_inputs(caught, "[11]", timed=True)
+    del caught, ev
     torch.cuda.empty_cache()
 
     # each stream against its own step() sequence (the same model, B = 1)
@@ -1106,13 +946,13 @@ def phase_multistream(model, dev, profile_path):
           f"(reset at step 4), deterministic algorithms: decoded outputs and "
           f"head outputs {'bitwise equal' if exact else 'DIFFER'}")
     check(exact, "B = 1 step_batch differs from step()")
-    return launches, steady, peak
+    return launches
 
 
 OFFLINE_SAMPLES = 3
 
 
-def phase_offline(model, dev):
+def phase_offline(model):
     """`OfflineEvaluator` at batch 1 over the port's SyntheticDataset at
     full width: every frame of each sample's window encoded, decoded."""
     from racformer_tpu_torch.data import SyntheticDataset
@@ -1123,14 +963,9 @@ def phase_offline(model, dev):
                           num_frames=model.num_frames, hw=model.image_hw,
                           max_radar_points=1536, max_gt=model.max_gt)
     ev = OfflineEvaluator(model, batch_size=1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     gk.LAUNCHES = 0
-    t0 = time.perf_counter()
-    preds, gts, rate = ev.run(ds)
-    wall = time.perf_counter() - t0
+    preds, gts, _ = ev.run(ds)
     launches = gk.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
     head = model.pts_bbox_head
     n_boxes = min(300, head.num_query * head.num_classes)
     check(len(preds) == len(gts) == OFFLINE_SAMPLES, "offline: wrong count")
@@ -1142,12 +977,10 @@ def phase_offline(model, dev):
     check(launches == 18 * OFFLINE_SAMPLES,
           f"offline: K1 launched {launches} times, expected {18 * OFFLINE_SAMPLES}")
     print(f"[12] offline, batch 1, {OFFLINE_SAMPLES} synthetic samples of "
-          f"{model.num_frames} frames x {model.num_cams} cameras: {rate:.3f} "
-          f"samples/s (model calls after the first, host clock, synchronized); "
-          f"{wall:.2f} s in all with the data; K1 launches {launches}; boxes "
-          f"finite, valid per sample {[int(p['valid'].sum()) for p in preds]}; "
-          f"peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
-    return launches, rate
+          f"{model.num_frames} frames x {model.num_cams} cameras: K1 launches "
+          f"{launches}; boxes finite, valid per sample "
+          f"{[int(p['valid'].sum()) for p in preds]}")
+    return launches
 
 
 NUSC_CAMS = (("CAM_FRONT", 0.0), ("CAM_FRONT_RIGHT", -55.0),
@@ -1234,11 +1067,10 @@ def phase_driver():
     n = NUSC_SCENES * NUSC_SAMPLES
     runs, total = {}, 0
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         ann = write_nuscenes_split(Path(tmp))
         print(f"[13] wrote {n} keyframes ({NUSC_SCENES} scenes x "
               f"{NUSC_SAMPLES}) x {len(NUSC_CAMS)} cameras of 1600x900 JPEG "
-              f"in the nuScenes info layout in {time.perf_counter() - t0:.2f} s")
+              f"in the nuScenes info layout")
         decode = (f"native libjpeg ({native.library_path()})"
                   if native.available() else
                   "PIL (the port's native library is not available: no g++ "
@@ -1251,14 +1083,12 @@ def phase_driver():
                             ("--streaming", ["--streaming"]),
                             ("offline", [])):
             gk.LAUNCHES = 0
-            t0 = time.perf_counter()
             (preds, metrics), text = run_driver(eval_main, base + extra)
-            secs = time.perf_counter() - t0
             launches = gk.LAUNCHES
             total += launches
-            rate = [l for l in text.splitlines() if l.startswith("eval:")]
-            print(f"[13] eval driver {name}: {rate[0] if rate else 'no eval line'}"
-                  f" ({secs:.2f} s in all); K1 launches {launches}; metrics "
+            line = [l for l in text.splitlines() if l.startswith("eval:")]
+            print(f"[13] eval driver {name}: {line[0] if line else 'no eval line'}"
+                  f"; K1 launches {launches}; metrics "
                   f"{json.dumps({k: round(float(v), 4) for k, v in (metrics or {}).items() if isinstance(v, (int, float))})}")
             check(f"eval: {n} samples" in text and '"NDS"' in text,
                   f"eval driver {name}: no eval line or metrics")
@@ -1308,12 +1138,10 @@ def check_driver_steps(tag, res, want):
     check(res["steps"] and not bad, f"{tag}: steps launched {bad}")
 
 
-def phase_train_driver(cfg, card):
+def phase_train_driver(cfg):
     """`python -m racformer_tpu_torch.train` in process: a run, its resume,
     the eval driver on the work dir, and 2 steps on a nuScenes-layout
-    training split. Returns the (K1, K2, K3, K4) launches of the phase, the
-    median synchronized ms of a synthetic-data step after the first, and
-    the phase's peak memory."""
+    training split. Returns the (K1, K2, K3, K4) launches of the phase."""
     import tempfile
 
     from racformer_tpu_torch.data import SyntheticDataset
@@ -1326,43 +1154,29 @@ def phase_train_driver(cfg, card):
     want = (0, 2 * SITES * layers * accum, SITES * layers * accum,
             SITES * layers * accum)
     totals = np.zeros(4, np.int64)
-    blocks = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         wd = Path(tmp) / "wd"
         runs, outs = {}, {}
         for name, extra in (("A", ["--max-steps", "2"]),
                             ("B", ["--max-steps", "4", "--resume"])):
             reset_launch_counts()
-            t0 = time.perf_counter()
             res, out = run_driver(train_main, [
                 "--config", str(CONFIG), "--synthetic", "--work-dir", str(wd),
                 "--ema", "--match-stats", *extra, "--override",
                 *DRIVER_OVERRIDES])
-            secs = time.perf_counter() - t0
             totals += launch_counts()
             runs[name], outs[name] = res, out
-            blocks += [bl["ms"] / bl["steps"] for bl in res["blocks"]]
             check("training done" in out, f"run {name}: no 'training done'")
             saves = res["saves"]
             print(f"[14] run {name} ({' '.join(extra)} --ema --match-stats): "
-                  f"steps {res['start_step'] + 1}..{res['last_step']} in "
-                  f"{secs:.2f} s in all; {card}")
-            for s in res["steps"]:
-                print(f"[14]   step {s['step'] + 1}: host ms {s['host_ms']:.1f} "
-                      f"(no sync), loader wait ms {s['wait_ms']:.2f}")
-            print(f"[14]   synchronized ms per flush block (log_interval=1: "
-                  f"one step each, the metrics fetch included): "
-                  f"{[round(b['ms'], 1) for b in res['blocks']]}")
+                  f"steps {res['start_step'] + 1}..{res['last_step']}")
             for sv in saves:
-                print(f"[14]   checkpoint step {sv['step']}: save + verify "
-                      f"{sv['seconds']:.2f} s, {sv['bytes']} B, attempts "
-                      f"{sv['attempts']}, verified {sv['verified']}")
+                print(f"[14]   checkpoint step {sv['step']}: {sv['bytes']} B, "
+                      f"attempts {sv['attempts']}, verified {sv['verified']}")
             for ev in res["evals"]:
                 print(f"[14]   in-training eval @ {ev['step']}: "
-                      f"{ev['samples']} samples offline in {ev['seconds']:.2f} "
-                      f"s, K1 launches {ev['k1_launches']}, NDS "
+                      f"{ev['samples']} samples offline, K1 launches "
+                      f"{ev['k1_launches']}, NDS "
                       f"{ev.get('metrics', {}).get('NDS')}")
             check(saves and all(sv["verified"] for sv in saves),
                   f"run {name}: a checkpoint failed verification")
@@ -1406,11 +1220,9 @@ def phase_train_driver(cfg, card):
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             reset_launch_counts()
-            t0 = time.perf_counter()
             (preds, metrics), out = run_driver(eval_main, [
                 "--config", str(CONFIG), "--synthetic", "--max-samples", "2",
                 "--checkpoint", str(wd)])
-            secs = time.perf_counter() - t0
             driver_k1 = launch_counts()[0]
             totals[0] += driver_k1
             ds = SyntheticDataset(
@@ -1426,7 +1238,7 @@ def phase_train_driver(cfg, card):
             for k in w)
         print(f"[14] eval driver --checkpoint <work_dir>: "
               f"{[l for l in out.splitlines() if l.startswith(('restored', 'eval:'))]}"
-              f" in {secs:.2f} s; K1 launches {driver_k1}; predictions against "
+              f"; K1 launches {driver_k1}; predictions against "
               f"the in-memory model's (deterministic algorithms): "
               f"{'bitwise equal' if exact else 'DIFFER'}")
         if not exact:
@@ -1438,20 +1250,13 @@ def phase_train_driver(cfg, card):
         torch.cuda.empty_cache()
 
         # 2 steps on a nuScenes-layout training split
-        t0 = time.perf_counter()
         ann = write_nuscenes_split(Path(tmp), "nuscenes_infos_train_sweep.pkl")
-        print(f"[14] wrote a nuScenes-layout training split in "
-              f"{time.perf_counter() - t0:.2f} s")
         reset_launch_counts()
         res, out = run_driver(train_main, [
             "--config", str(CONFIG), "--work-dir", str(Path(tmp) / "nusc"),
             "--max-steps", "2", "--override", f"data.train.ann_file={ann}",
             "evaluation.interval=0", "log_interval=1"])
         totals += launch_counts()
-        for s in res["steps"]:
-            print(f"[14] nuScenes split step {s['step'] + 1}: host ms "
-                  f"{s['host_ms']:.1f}, loader wait ms {s['wait_ms']:.2f} "
-                  f"(JPEG decode, ida_aug, bev_aug in the loader's threads)")
         check(res["last_step"] == 2, "nuScenes split: not 2 steps")
         check_driver_steps("[14] nuScenes split", res, want)
         rec = [json.loads(line) for line in
@@ -1459,21 +1264,10 @@ def phase_train_driver(cfg, card):
         check(all(np.isfinite(r["loss_total"]) for r in rec),
               "nuScenes split: non-finite loss")
         del res
-    peak = torch.cuda.max_memory_allocated()
-    steady = statistics.median(blocks[1:])
-    print(f"[14] driver step, synchronized by each step's metrics fetch: "
-          f"median {steady:.2f} ms over the synthetic runs' steps 2..4 "
-          f"{[round(x, 1) for x in blocks[1:]]}; peak device memory of the "
-          f"phase: {peak} B ({peak / 2**30:.2f} GiB); {card}")
-    return tuple(int(n) for n in totals), steady, peak
+    return tuple(int(n) for n in totals)
 
 
 TRAIN_STEPS = 5
-# the autograd node of `ops.bilinear.patch_sample_op`, as the profiler names it
-SAMPLE_BACKWARD = "GeneratedBackwardFor_racformer_tpu_torch_patch_sample_defaultBackward"
-# the kernels of one K3 call (csrc/patch_scatter.cu), as the profiler names them
-K3_KERNELS = ("count_chunks", "scan_chunks", "fill_chunks", "accumulate_tiles",
-              "finish_rows")
 SITES = 3  # sampling sites per decoder iteration: image, radar BEV, LSS BEV
 
 
@@ -1669,7 +1463,7 @@ def gather_edge_cases(fmap, pts, g, gen):
     """K2 and K4 against their plain versions on the edges of their point
     tiling (csrc/point_tiles.cuh), on the image site's map: point counts
     that leave a ragged tile, points at the last column and the last row,
-    every point touching the zero border, and clustered points (timed)."""
+    every point touching the zero border, and clustered points."""
     S, R, Wp, _ = fmap.shape
     row, x0p, wx, wy = pts
     K, dev, dtype = row.shape[1], row.device, fmap.dtype
@@ -1702,16 +1496,8 @@ def gather_edge_cases(fmap, pts, g, gen):
                                                 else (want,))),
                       f"{kname}'s plain version is not zero on the zero border")
             ok, err, detail, tol = compare(kname, kern(), want, dtype)
-            timing = ""
-            if case.startswith("clustered"):
-                t_k = median_ms(kern, reps=10, warmup=2)
-                t_b, by = bound_ms(kname, tuple(fmap.shape), hot,
-                                   fmap.element_size())
-                timing = (f"; kernel {t_k:.4f} ms, bound {t_b:.4f} ms ({by}), "
-                          f"share {t_b / t_k:.3f}")
             print(f"[7] {kname:18s} image, {case} {str(dtype):14s}: "
-                  f"max_abs_err {detail} ({tol}) {'ok' if ok else 'FAIL'}"
-                  f"{timing}")
+                  f"max_abs_err {detail} ({tol}) {'ok' if ok else 'FAIL'}")
             check(ok, f"{kname} disagrees with its plain version: {case}, {dtype}")
 
 
@@ -1737,11 +1523,8 @@ def phase_patch_kernels(model, dev):
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 ok, err, detail, tol = compare(kname, got, want, dtype)
-                if kname == "patch_scatter":
-                    extra = f", largest bucket {largest_bucket(pts, shape[1])}"
-                else:
-                    extra = (f", every column read from device memory "
-                             f"{bound_ms(kname, shape, pts, es, reread=True)[0]:.4f} ms")
+                extra = (f", largest bucket {largest_bucket(pts, shape[1])}"
+                         if kname == "patch_scatter" else "")
                 del got, want
                 t_k = median_ms(kern, reps=10, warmup=2)
                 t_p = median_ms(plain, reps=3, warmup=1)
@@ -1771,15 +1554,10 @@ def phase_patch_kernels(model, dev):
                 ok, tol = map_grad_ok(got, want)
                 err = (got.float() - want.float()).abs().max().item()
                 del got, want
-                t_k = median_ms(lambda: sk.patch_scatter(g, *hot, shape), reps=10,
-                                warmup=2)
-                t_b, by = bound_ms("patch_scatter", shape, hot, es)
                 print(f"[7] patch_scatter      image, clustered (90% of the points "
                       f"in 5% of the rows) {str(dtype):14s}: max_abs_err "
-                      f"{err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; kernel "
-                      f"{t_k:.4f} ms, bound {t_b:.4f} ms ({by}), share "
-                      f"{t_b / t_k:.3f}, largest bucket "
-                      f"{largest_bucket(hot, shape[1])}")
+                      f"{err:.3g} ({tol}) {'ok' if ok else 'FAIL'}; largest "
+                      f"bucket {largest_bucket(hot, shape[1])}")
                 check(ok, f"patch_scatter disagrees with its plain version on "
                           f"clustered points, {dtype}")
                 del hot
@@ -1795,7 +1573,7 @@ def finite_grads(model):
     return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
 
 
-def phase_train(cfg, dev, profile_path):
+def phase_train(cfg, dev):
     """The flagship train step, TRAIN_STEPS times."""
     from racformer_tpu_torch.train.__main__ import build, to_device
 
@@ -1808,24 +1586,17 @@ def phase_train(cfg, dev, profile_path):
           f"{model.pts_bbox_head.num_query} + "
           f"{model.pts_bbox_head.dn_groups * model.max_gt} DN queries")
     batches = [to_device(dataset.batch(list(range(i * batch, (i + 1) * batch))),
-                         dev) for i in range(TRAIN_STEPS + 2)]
+                         dev) for i in range(TRAIN_STEPS + 1)]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     gen = torch.Generator().manual_seed(SEED + 1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms, metrics = [], None
     for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
         metrics = train_step(batches[i], gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         losses = {k: float(v) for k, v in metrics.items()}
         check(all(np.isfinite(v) for v in losses.values()),
               f"non-finite losses at step {i + 1}: {losses}")
         check(finite_grads(model), f"non-finite gradients at step {i + 1}")
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     per_step = [n // TRAIN_STEPS for n in launches]
     want = (0, 2 * SITES * layers * accum, SITES * layers * accum,
             SITES * layers * accum)
@@ -1839,12 +1610,6 @@ def phase_train(cfg, dev, profile_path):
           f"{want} per step")
     print(f"[8] last step's metrics: " + ", ".join(
         f"{k} {v:.5g}" for k, v in sorted(losses.items())))
-    steady = statistics.median(step_ms[1:])
-    print(f"[8] step ms: first {step_ms[0]:.2f}, steady median {steady:.2f} "
-          f"(min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) over steps "
-          f"2..{TRAIN_STEPS}; losses and all gradients finite")
-    print(f"[8] peak device memory (max_memory_allocated): {peak} B "
-          f"({peak / 2**30:.2f} GiB)")
     frozen = opt.frozen()
     moved = [n for n, p in model.named_parameters()
              if n not in frozen and not torch.equal(p, before[n])]
@@ -1854,60 +1619,18 @@ def phase_train(cfg, dev, profile_path):
           f"{len(frozen)}")
     check(len(moved) == len(before) - len(frozen) and len(still) == len(frozen),
           "a trainable parameter did not move or a frozen one did")
-    if profile_path:
-        it = iter(batches[TRAIN_STEPS:])
-        events, busy = profiled(lambda: train_step(next(it), gen), 1)
-        path = Path(profile_path)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(events.table(sort_by="self_cuda_time_total",
-                                     row_limit=80))
-        print(f"[8] profile of 1 train step: device busy {busy:.2f} ms against "
-              f"the unprofiled steady step {steady:.2f} ms: idle share "
-              f"{max(0.0, 1 - busy / steady):.3f} (table: {path})")
-        from torch.autograd import DeviceType
-
-        top = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.self_device_time_total, reverse=True)[:12]
-        for e in top:
-            print(f"[8]   {e.self_device_time_total / 1e3:8.3f} ms device "
-                  f"{e.count:6d} calls  {e.key[:90]}")
-        ops = sorted((e for e in events if e.key.startswith("aten::")),
-                     key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        for e in ops:
-            print(f"[8]   {e.self_device_time_total / 1e3:8.3f} ms device "
-                  f"{e.count:6d} calls  {e.key}")
-        print(f"[8]   aten ops in the step: "
-              f"{sum(e.count for e in events if e.key.startswith('aten::'))}")
-        k3 = {k: [e for e in events if e.device_type == DeviceType.CUDA
-                  and k in e.key] for k in K3_KERNELS}
-        k3_ms = sum(e.self_device_time_total for es in k3.values() for e in es)
-        parts = ", ".join(f"{k} {sum(e.count for e in es)}" for k, es in k3.items())
-        backward = [e for e in events if e.key == SAMPLE_BACKWARD]
-        print(f"[8]   K3 in the step: {k3_ms / 1e3:.3f} ms device over its "
-              f"kernels' launches ({parts}); the sampler's backward (K3, K4 "
-              f"and their scratch) "
-              f"{sum(e.device_time_total for e in backward) / 1e3:.3f} ms "
-              f"device over {sum(e.count for e in backward)} calls")
-        for label, kern in (("K2", "patch_gather_kernel"),
-                            ("K4", "corner_grads_kernel")):
-            es = [e for e in events if e.device_type == DeviceType.CUDA
-                  and kern in e.key]
-            print(f"[8]   {label} in the step: "
-                  f"{sum(e.self_device_time_total for e in es) / 1e3:.3f} ms "
-                  f"device over {sum(e.count for e in es)} launches of {kern}")
-    step_own_inputs(train_step, batches[-1], gen)
-    return model, batches[0], launches, steady, step_ms[0], peak
+    step_own_inputs(train_step, batches[-1], gen, timed=False)
+    return model, batches[0], launches
 
 
-def step_own_inputs(train_step, batch, gen, tag="[8]"):
+def step_own_inputs(train_step, batch, gen, timed, tag="[8]"):
     """K2, K3 and K4 on their own inputs from one train step (each kernel's
-    first call at each map shape), against their plain versions and timed,
-    with the statistics that set this work apart from phase 7's uniform
-    points: the largest row bucket, the share of rows with points, the
-    points in the busiest 1% of rows, the busiest column, and the share of
-    the column reads that go to distinct columns (what the bound counts;
-    the rest L2 has to absorb). Returns {(kernel, map shape): (ms, bound
-    ms)}."""
+    first call at each map shape), against their plain versions, with the
+    statistics that set this work apart from phase 7's uniform points: the
+    largest row bucket, the share of rows with points, the points in the
+    busiest 1% of rows, the busiest column, and the share of the column
+    reads that go to distinct columns (what the bound counts; the rest L2
+    has to absorb); when `timed`, the kernel's ms and the bound."""
     from racformer_tpu_torch.ops import gather_kernel as gk
     from racformer_tpu_torch.ops import scatter_kernel as sk
 
@@ -1937,7 +1660,6 @@ def step_own_inputs(train_step, batch, gen, tag="[8]"):
             setattr(mod, kname, origs[kname])
     torch.cuda.synchronize()
     labels = {"patch_gather": "K2", "patch_scatter": "K3", "patch_corner_grads": "K4"}
-    times = {}
     for kname, (_, plain, first) in spied.items():
         for shape, args in caught[kname].items():
             S, R, Wp, _ = shape
@@ -1947,18 +1669,20 @@ def step_own_inputs(train_step, batch, gen, tag="[8]"):
             kern = functools.partial(origs[kname], *args)
             ok, err, detail, tol = compare(kname, kern(), plain(*args), dtype,
                                            floor=0.0)
-            t_k = median_ms(kern, reps=10, warmup=2)
-            t_b, by = bound_ms(kname, shape, pts, args[0].element_size())
+            timing = ""
+            if timed:
+                t_k = median_ms(kern, reps=10, warmup=2)
+                t_b, by = bound_ms(kname, shape, pts, args[0].element_size())
+                timing = (f"; kernel {t_k:.4f} ms, bound {t_b:.4g} ms ({by}), "
+                          f"share {t_b / t_k:.3g}")
             key = (torch.arange(S, device=row.device)[:, None] * R
                    + row.long()).reshape(-1)
             counts = torch.bincount(key, minlength=S * R).sort(descending=True).values
             cols = torch.bincount(x0p.reshape(-1).long(), minlength=Wp)
             n = key.numel()
-            times[kname, shape] = (t_k, t_b)
             print(f"{tag} {labels[kname]} on the step's inputs, map {shape} "
                   f"K={row.shape[1]} {dtype}: max_abs_err {detail} ({tol}) "
-                  f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, bound "
-                  f"{t_b:.4g} ms ({by}), share {t_b / t_k:.3g}; distinct columns "
+                  f"{'ok' if ok else 'FAIL'}{timing}; distinct columns "
                   f"per column read {unique_columns(shape, row, x0p) / (2 * n):.3f}, "
                   f"largest bucket {counts[0].item()}, rows with points "
                   f"{(counts > 0).float().mean().item():.3f}, points in the busiest "
@@ -1968,7 +1692,6 @@ def step_own_inputs(train_step, batch, gen, tag="[8]"):
             check(ok, f"{labels[kname]} disagrees with its plain version on the "
                       f"step's inputs {shape}")
         caught[kname].clear()
-    return times
 
 
 def grads_of(model, metrics, clip=35.0):
@@ -2182,68 +1905,17 @@ def small_ddp_step(dev, rows):
                        model.named_parameters()}}
 
 
-PROFILED_STEP = 3  # the call of run A's built step that phase 15 profiles
-
-
-def profile_step(fn, device):
-    """Run fn() under torch.profiler; returns (its result, {"step_ms",
-    "device_ms", "nccl_ms"}): the synchronized wall time, the device time
-    of all kernels and of the NCCL ones. Only the device's activity is
-    traced (the host's ~124k ops of a flagship step would take longer to
-    sum than the step)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize(device)
-        ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    return out, {
-        "step_ms": ms,
-        "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
-        "nccl_ms": sum(e.self_device_time_total for e in kernels
-                       if "nccl" in e.key.lower()) / 1e3}
-
-
-def train_run(argv, dev, profile):
-    """The train driver's main(argv) in this process, with the
-    PROFILED_STEP-th call of its built step profiled when `profile`.
-    Returns the driver's result without the model and the predictions,
-    with the BatchNorm all-reduces made, the peak memory, the seconds and
-    the profile."""
+def train_run(argv):
+    """The train driver's main(argv) in this process. Returns the driver's
+    result without the model and the predictions, with the BatchNorm
+    all-reduces made."""
     from racformer_tpu_torch.nn import layers
     from racformer_tpu_torch.train import __main__ as drv
 
-    build, prof = drv.build, {}
-
-    def build_profiled(*a, **k):
-        model, opt, step, dataset, batch = build(*a, **k)
-        calls = []
-
-        def step_profiled(*sa, **sk):
-            calls.append(1)
-            if len(calls) != PROFILED_STEP:
-                return step(*sa, **sk)
-            out, prof["profile"] = profile_step(lambda: step(*sa, **sk), dev)
-            return out
-
-        return model, opt, step_profiled, dataset, batch
-
-    if profile:
-        drv.build = build_profiled
     layers.SYNCS = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    try:
-        out = drv.main(argv)
-    finally:
-        drv.build = build
+    out = drv.main(argv)
     out = {k: v for k, v in out.items() if k not in ("model", "eval_preds")}
-    out.update(prof, bn_syncs=layers.SYNCS, seconds=time.perf_counter() - t0,
-               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    out["bn_syncs"] = layers.SYNCS
     return out
 
 
@@ -2252,11 +1924,11 @@ def worker(argv):
     call. It joins the process group itself (NCCL, one card per rank),
     turns TF32 off as the parent does, and runs a driver once for each
     argument list of JSON, in turn. KIND "train": the train driver
-    (`train_run`, the first run profiled), then `small_ddp_step` on this
-    rank's rows of a global batch of 2 per rank; KIND "eval": the eval
-    driver, counting each run's K1 launches. The eval runs and the small
-    step run under deterministic algorithms, as their references in the
-    parent do. Saves the results to OUT/rank_<r>.pt."""
+    (`train_run`), then `small_ddp_step` on this rank's rows of a global
+    batch of 2 per rank; KIND "eval": the eval driver, counting each run's
+    K1 launches. The eval runs and the small step run under deterministic
+    algorithms, as their references in the parent do. Saves the results to
+    OUT/rank_<r>.pt."""
     from racformer_tpu_torch.ops import gather_kernel as gk
     from racformer_tpu_torch.utils import distributed, pin_float32_precision
 
@@ -2266,8 +1938,7 @@ def worker(argv):
     dev = distributed.init("cuda")
     try:
         if kind == "train":
-            result = {"runs": [train_run(args, dev, profile=i == 0)
-                               for i, args in enumerate(runs)]}
+            result = {"runs": [train_run(args) for args in runs]}
             torch.use_deterministic_algorithms(True, warn_only=True)
             result["small"] = small_ddp_step(dev, 2 * distributed.world())
         else:
@@ -2287,24 +1958,20 @@ def worker(argv):
 
 def run_workers(kind, n, out_dir, runs):
     """`--worker KIND` on `n` cards in one torchrun call; returns each
-    rank's result, the call's output and its seconds (the processes' start
-    included)."""
-    t0 = time.perf_counter()
+    rank's result and the call's output."""
     rc, out = run_group(torchrun(n) + [str(REPO / "chip_smoke.py"),
                                        "--worker", kind, str(out_dir),
                                        json.dumps(runs)])
-    secs = time.perf_counter() - t0
     check_run(f"torchrun --worker {kind} on {n} cards", rc, out)
     return ([torch.load(Path(out_dir) / f"rank_{r}.pt", weights_only=False)
-             for r in range(n)], out, secs)
+             for r in range(n)], out)
 
 
-def phase_ddp_train(cfg, card, n):
+def phase_ddp_train(cfg, n):
     """Phase 15: the train driver under torchrun, one process on each of
-    `n` cards, in one torchrun call: run A --max-steps 3 (step 3
-    profiled), run B --resume to 4, then SMALL's step on the same ranks
-    against one process. Returns the K1-K4 launches of the driver runs,
-    summed over the ranks, and the samples/s of run A's step 2."""
+    `n` cards, in one torchrun call: run A --max-steps 3, run B --resume
+    to 4, then SMALL's step on the same ranks against one process. Returns
+    the K1-K4 launches of the driver runs, summed over the ranks."""
     import tempfile
 
     from racformer_tpu_torch.train.__main__ import accumulation_steps
@@ -2318,28 +1985,24 @@ def phase_ddp_train(cfg, card, n):
     runs = {"A": ["--max-steps", "3"], "B": ["--max-steps", "4", "--resume"]}
     with tempfile.TemporaryDirectory() as tmp:
         wd = Path(tmp) / "wd"
-        ranks, _, secs = run_workers("train", n, tmp, [
+        ranks, _ = run_workers("train", n, tmp, [
             ["--distributed", "--synthetic", "--config", str(CONFIG),
              "--work-dir", str(wd), *extra, "--override", *DDP_OVERRIDES]
             for extra in runs.values()])
         steps = [r["step"] for r in map(json.loads, (wd / "metrics.jsonl")
                                         .read_text().splitlines())]
     print(f"[15] one torchrun call, --nproc_per_node={n}: runs A and B and "
-          f"SMALL's step in {secs:.2f} s, the processes' start included; "
-          f"{card}")
+          f"SMALL's step")
     a, b = [[r["runs"][i] for r in ranks] for i in range(2)]
     for (name, extra), sums in zip(runs.items(), (a, b)):
         gb = sums[0]["global_batch"]
         print(f"[15] run {name} ({' '.join(extra)}): world "
               f"{sums[0]['world']}, global batch {gb} ({gb // n} per rank "
-              f"in {accum} microbatches), {sums[0]['seconds']:.2f} s")
+              f"in {accum} microbatches)")
         for r, s in enumerate(sums):
-            peak = s["peak_bytes"]
-            print(f"[15]   rank {r}: synchronized ms per step "
-                  f"{[round(x['ms'], 1) for x in s['blocks']]}, launches "
-                  f"per step {[st['launches'] for st in s['steps']]}, peak "
-                  f"{peak} B ({peak / 2**30:.2f} GiB), BatchNorm all-reduces "
-                  f"per microbatch "
+            print(f"[15]   rank {r}: launches per step "
+                  f"{[st['launches'] for st in s['steps']]}, BatchNorm "
+                  f"all-reduces per microbatch "
                   f"{s['bn_syncs'] / (len(s['steps']) * accum):g}")
             bad = [st for st in s["steps"] if st["launches"] != want]
             check(s["steps"] and not bad,
@@ -2360,19 +2023,6 @@ def phase_ddp_train(cfg, card, n):
           f"{steps}")
     check(steps and len(steps) == len(set(steps)),
           "metrics.jsonl: missing or duplicated records")
-    # step 2 of run A: its process's first step is 1, step 3 profiled
-    steady = max(s["blocks"][1]["ms"] for s in a)
-    gb = a[0]["global_batch"]
-    prof = a[0]["profile"]
-    print(f"[15] driver step 2 of run A (synchronized by its metrics "
-          f"fetch, the slowest rank's): {steady:.2f} ms, "
-          f"{gb * 1e3 / steady:.3f} samples/s at world {n}; {card}")
-    print(f"[15] profile of step 3 of run A (rank 0): "
-          f"{prof['step_ms']:.2f} ms, device busy {prof['device_ms']:.2f} "
-          f"ms, NCCL kernels {prof['nccl_ms']:.2f} ms: "
-          f"{prof['nccl_ms'] / prof['step_ms']:.4f} of the step, "
-          f"{prof['nccl_ms'] / max(prof['device_ms'], 1e-9):.4f} of the "
-          f"device time")
     # SMALL on the same ranks against one process at the same global batch
     rows = 2 * n
     small = [r["small"] for r in ranks]
@@ -2403,23 +2053,18 @@ def phase_ddp_train(cfg, card, n):
               "DDP step gradients disagree with one process (bound: every "
               "gradient's cosine >= 0.999, global relative difference "
               "<= 1e-3)")
-    return tuple(int(x) for x in totals), gb * 1e3 / steady
+    return tuple(int(x) for x in totals)
 
 
-def eval_rates(out):
-    """The rates of the eval driver's `eval: N samples, X samples/s` lines
-    (frames/s in the multi-stream protocol), in order."""
-    rates = re.findall(r"^eval: \d+ samples, ([\d.]+) samples/s", out, re.M)
-    check(rates, "the eval driver printed no eval line")
-    return [float(r) for r in rates]
+# the eval driver's line after a protocol's run
+EVAL_LINE = re.compile(r"^eval: \d+ samples, [\d.]+ samples/s", re.M)
 
 
-def phase_ddp_eval(card, n):
+def phase_ddp_eval(n):
     """Phase 16: the eval driver under torchrun on `n` cards (offline,
     --streaming --streams 4, in one torchrun call) on the synthetic split
     against the same driver in one process, both under deterministic
-    algorithms. Returns the K1 launches, summed over the ranks, and each
-    protocol's rate."""
+    algorithms. Returns the K1 launches, summed over the ranks."""
     import tempfile
 
     from racformer_tpu_torch.eval.__main__ import main as eval_main
@@ -2431,22 +2076,18 @@ def phase_ddp_eval(card, n):
     argvs = [["--config", str(CONFIG), "--synthetic", *extra]
              for extra in protocols.values()]
     with tempfile.TemporaryDirectory() as tmp:
-        ranks, out, secs = run_workers("eval", n, tmp, argvs)
-    got_rates = eval_rates(out)
-    check(len(got_rates) == len(argvs),
-          f"rank 0 printed {len(got_rates)} eval lines, want {len(argvs)}")
+        ranks, out = run_workers("eval", n, tmp, argvs)
+    lines = EVAL_LINE.findall(out)
+    check(len(lines) == len(argvs),
+          f"rank 0 printed {len(lines)} eval lines, want {len(argvs)}")
     print(f"[16] one torchrun call, --nproc_per_node={n}: both protocols on "
-          f"8 synthetic samples in {secs:.2f} s, the processes' start "
-          f"included; {card}")
-    k1, rates = 0, {}
+          f"8 synthetic samples")
+    k1 = 0
     for i, (name, args) in enumerate(zip(protocols, argvs)):
         runs = [r[i] for r in ranks]
         k1 += sum(r["k1"] for r in runs)
-        unit = "frames/s" if "streams" in name else "samples/s"
-        rates[name] = got_rates[i]
-        print(f"[16] eval driver {name} on {n} ranks: {rates[name]:.3f} "
-              f"{unit} (deterministic algorithms); K1 launches per rank "
-              f"{[r['k1'] for r in runs]}")
+        print(f"[16] eval driver {name} on {n} ranks (deterministic "
+              f"algorithms): K1 launches per rank {[r['k1'] for r in runs]}")
         check(all(r["k1"] > 0 for r in runs),
               f"{name}: a rank launched no K1")
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2455,8 +2096,7 @@ def phase_ddp_eval(card, n):
             (want, _), text = run_driver(eval_main, args)
         finally:
             torch.use_deterministic_algorithms(False)
-        print(f"[16] the same in one process: {eval_rates(text)[-1]:.3f} "
-              f"{unit}")
+        check(EVAL_LINE.search(text), "the eval driver printed no eval line")
         got = runs[0]["preds"]
         exact = len(got) == len(want) and all(
             np.array_equal(p[k], w[k]) for p, w in zip(got, want) for k in w)
@@ -2468,22 +2108,7 @@ def phase_ddp_eval(card, n):
         check(exact if n == 1 else close,
               f"{name}: {n}-rank predictions disagree with one process "
               f"(bound: bitwise at world 1, phase 5's at more ranks)")
-    return k1, rates
-
-
-def phase_ddp_worlds(cfg, card):
-    """Phases 15 and 16 at world 1 and, on a machine of several cards, on
-    every card: the scaling's two sides in one call. Returns the worlds
-    and each world's phase 15 and phase 16 results."""
-    worlds = sorted({1, torch.cuda.device_count()})
-    train = {n: phase_ddp_train(cfg, card, n) for n in worlds}
-    evals = {n: phase_ddp_eval(card, n) for n in worlds}
-    for n in worlds[1:]:
-        print(f"[-] {card}: world {n}: train driver {train[n][1]:.3f} "
-              f"samples/s ({train[n][1] / train[1][1]:.2f}x world 1), "
-              + ", ".join(f"eval {k} {v:.3f} ({v / evals[1][1][k]:.2f}x)"
-                          for k, v in evals[n][1].items()))
-    return worlds, train, evals
+    return k1
 
 
 # the sampler sites whose K2 gathers each policy runs again in the backward
@@ -2491,7 +2116,7 @@ REMAT_RECOMPUTED = {"full": 3, "dots": 3, "dots_no_batch": 3,
                     "save_sampled": 0, "save_bev": 1}
 
 
-def phase_remat(cfg, dev, card):
+def phase_remat(cfg, dev):
     """Phase 17: each decoder remat policy for 2 flagship train steps with
     the same batches and draws, on one model built once: before each
     policy its decoder's `remat_policy` is set and the seeded weights and
@@ -2509,7 +2134,7 @@ def phase_remat(cfg, dev, card):
     model, optimizer, step, dataset, batch = build(cfg, dev, SEED, 1000)
     decoder = next(m for m in model.modules()
                    if isinstance(m, RaCFormerDecoder))
-    # on the host, so that no policy's peak counts a copy of the weights
+    # on the host, so that the copy takes no device memory from the policies
     weights = {k: v.detach().cpu().clone()
                for k, v in model.state_dict().items()}
     opt_state = copy.deepcopy(optimizer.state_dict())
@@ -2525,26 +2150,18 @@ def phase_remat(cfg, dev, card):
         decoder.remat_policy = policy
         model.load_state_dict(weights)
         optimizer.load_state_dict(copy.deepcopy(opt_state))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        ms = []
         for b, d in zip(batches, draws):
-            t0 = time.perf_counter()
             metrics = step(b, draws=d)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
             if not results.get(policy):  # step 1, from the seeded weights
                 results[policy] = (
                     {k: float(v) for k, v in metrics.items()},
                     {n: g.cpu() for n, g in grads_of(model, metrics).items()})
         launches = launch_counts()
         totals += launches
-        peak = torch.cuda.max_memory_allocated()
         per_step = [x // 2 for x in launches]
-        print(f"[17] policy {policy}: step ms {ms[0]:.2f} (first), "
-              f"{ms[1]:.2f} (second); peak {peak} B ({peak / 2**30:.2f} GiB); "
-              f"launches per step K1-K4 {per_step} (K2 expected {k2}); {card}")
+        print(f"[17] policy {policy}: launches per step K1-K4 {per_step} (K2 "
+              f"expected {k2})")
         per_site = SITES * layers * accum
         check(per_step == [0, k2, per_site, per_site]
               and all(x % 2 == 0 for x in launches),
@@ -2638,20 +2255,10 @@ def write_vod_split(root):
     return ann
 
 
-def profile_split(tag, fn, card):
-    """`tools.profile_gpu`'s category split of one call of fn()."""
-    from racformer_tpu_torch.tools.profile_gpu import trace_and_summarize
-
-    print(f"{tag} ({card})")
-    trace_and_summarize(lambda i: fn(), n_steps=1, top=6,
-                        printer=lambda line: print(f"[18]   {line}"))
-
-
-def phase_vod(dev, card):
+def phase_vod(dev):
     """Phase 18: the VoD config unreduced through both drivers on a VoD-layout
-    split, K1-K4 on a VoD step's own inputs, the profiler's split of one
-    eval and one train step, and the VoD smoke. Returns the (K1, K2, K3,
-    K4) launches of the drivers' runs."""
+    split, K1-K4 on a VoD step's own inputs, timed, and the VoD smoke.
+    Returns the (K1, K2, K3, K4) launches of the drivers' runs."""
     import tempfile
 
     from racformer_tpu_torch.config import Config
@@ -2684,48 +2291,31 @@ def phase_vod(dev, card):
           f"{want[1]}, K3 {want[2]}, K4 {want[3]}")
     totals = np.zeros(4, np.int64)
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         ann = write_vod_split(Path(tmp))
         print(f"[18] wrote {VOD_SAMPLES} VoD-layout frames (1936x1216 JPEG, "
-              f"radar .bin, KITTI infos) in {time.perf_counter() - t0:.2f} s")
+              f"radar .bin, KITTI infos)")
         data = [f"data.train.ann_file={ann}", f"data.val.ann_file={ann}"]
 
         # the train driver: one epoch of 4 steps, its checkpoint, and an
         # in-training KITTI eval that saves the best by mAP3D_all
         wd = Path(tmp) / "wd"
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        t0 = time.perf_counter()
         res, out = run_driver(train_main, [
             "--config", str(VOD_CONFIG), "--device", dev.type, "--work-dir",
             str(wd), "--max-steps",
             str(VOD_SAMPLES // batch), "--override", *data,
             "evaluation.interval=1", "evaluation.max_samples=4",
             "log_interval=1"])
-        secs = time.perf_counter() - t0
         totals += launch_counts()
-        peak = torch.cuda.max_memory_allocated()
         check("training done" in out, "VoD train driver: no 'training done'")
-        for s in res["steps"]:
-            print(f"[18] train driver step {s['step'] + 1}: host ms "
-                  f"{s['host_ms']:.1f} (no sync), loader wait ms "
-                  f"{s['wait_ms']:.2f}")
-        blocks = [b["ms"] for b in res["blocks"]]
-        print(f"[18] synchronized ms per step (log_interval=1, the metrics "
-              f"fetch included): {[round(b, 1) for b in blocks]}; median of "
-              f"steps 2..: {statistics.median(blocks[1:]):.2f} ms; {card}")
         for sv in res["saves"]:
-            print(f"[18] checkpoint step {sv['step']}: save + verify "
-                  f"{sv['seconds']:.2f} s, {sv['bytes']} B, verified "
-                  f"{sv['verified']}")
+            print(f"[18] checkpoint step {sv['step']}: {sv['bytes']} B, "
+                  f"verified {sv['verified']}")
         for ev in res["evals"]:
             print(f"[18] in-training KITTI eval @ {ev['step']}: "
-                  f"{ev['samples']} samples offline in {ev['seconds']:.2f} s, "
-                  f"K1 launches {ev['k1_launches']}, mAP3D_all "
+                  f"{ev['samples']} samples offline, K1 launches "
+                  f"{ev['k1_launches']}, mAP3D_all "
                   f"{ev.get('metrics', {}).get('mAP3D_all')}")
-        print(f"[18] train driver: {secs:.2f} s in all, peak device memory "
-              f"{peak} B ({peak / 2**30:.2f} GiB)")
         check(res["saves"] and all(sv["verified"] for sv in res["saves"]),
               "VoD train driver: a checkpoint failed verification")
         check_driver_steps("[18] VoD train driver", res, want)
@@ -2753,18 +2343,16 @@ def phase_vod(dev, card):
                             ("--streaming --streams 4",
                              ["--streaming", "--streams", "4"])):
             reset_launch_counts()
-            t0 = time.perf_counter()
             (preds, metrics), text = run_driver(eval_main, [
                 "--config", str(VOD_CONFIG), "--device", dev.type,
                 "--checkpoint", str(wd), *extra, "--override", *data])
-            secs = time.perf_counter() - t0
             counts = launch_counts()
             totals += counts
-            rate = [l for l in text.splitlines() if l.startswith("eval:")]
+            line = [l for l in text.splitlines() if l.startswith("eval:")]
             scalars = {k: round(float(v), 4) for k, v in (metrics or {}).items()
                        if isinstance(v, (int, float))}
-            print(f"[18] eval driver {name}: {rate[0] if rate else 'no eval line'}"
-                  f" ({secs:.2f} s in all, {card}); K1 launches {counts[0]} "
+            print(f"[18] eval driver {name}: {line[0] if line else 'no eval line'}"
+                  f"; K1 launches {counts[0]} "
                   f"(expected {per_sample * n_steps[name]}); mAP3D_all "
                   f"{scalars.get('mAP3D_all')}, mAP3D_corridor "
                   f"{scalars.get('mAP3D_corridor')}")
@@ -2786,7 +2374,7 @@ def phase_vod(dev, card):
               f"boxes matched {'ok' if ok else 'FAIL'}")
         check(ok, "VoD: 4-stream predictions disagree with single-stream ones")
 
-        # K1 on a VoD eval step's own inputs, and the profiler's split
+        # K1 on a VoD eval step's own inputs
         with torch.device(dev):
             model = RaCFormer(**kwargs)
         random_init_(model, torch.Generator().manual_seed(SEED)).eval()
@@ -2794,24 +2382,21 @@ def phase_vod(dev, card):
                         max_radar_points=cfg["radar"]["max_points"],
                         max_gt=model.max_gt)
         cols = radar_maps_are_columns(ds[0])
-        frames = [prepare_frame(ds[i], 0.5 * i, cols) for i in range(4)]
+        frames = [prepare_frame(ds[i], 0.5 * i, cols) for i in range(3)]
         ev = StreamingEvaluator(model)
         with torch.no_grad():
-            ev.step(frames[0])
-            step_ms = host_ms(lambda: ev.step(frames[1], blocking=False))
+            for frame in frames[:2]:
+                ev.step(frame)
             seen, caught = capture_fold_inputs(
                 lambda: ev.step(frames[2], blocking=False))
-            print(f"[18] eval step (one stream, synchronized): {step_ms:.2f} ms "
-                  f"({card}); in-view share of image sample points per "
-                  f"iteration: {', '.join(f'{v:.3f}' for v in seen)}")
+            print(f"[18] eval step (one stream): in-view share of image sample "
+                  f"points per iteration: {', '.join(f'{v:.3f}' for v in seen)}")
             check(min(seen) > 0.02, "VoD: image sample points never in view")
-            k1 = step_fold_inputs(caught, "[18]")
-            profile_split("[18] profile of one eval step (tools.profile_gpu)",
-                          lambda: ev.step(frames[3], blocking=False), card)
+            step_fold_inputs(caught, "[18]", timed=True)
         del ev, model, caught
         torch.cuda.empty_cache()
 
-        # K2-K4 on a VoD train step's own inputs, and the profiler's split
+        # K2-K4 on a VoD train step's own inputs, after 3 steps
         tcfg = Config.fromfile(str(VOD_CONFIG)).merge_override(data)
         model, _, train_step, dataset, batch = build(tcfg, dev, SEED, 1000,
                                                      synthetic=False)
@@ -2819,38 +2404,24 @@ def phase_vod(dev, card):
         batches = [to_device(dataset.batch([2 * i, 2 * i + 1]), dev)
                    for i in range(4)]
         gen = torch.Generator().manual_seed(SEED + 1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        train_ms = [host_ms(lambda: train_step(batches[i], gen), runs=1)
-                    for i in range(3)]
-        tpeak = torch.cuda.max_memory_allocated()
-        print(f"[18] train step (batch {batch}, {accum} microbatches, "
-              f"synchronized): {[round(t, 1) for t in train_ms]} ms, peak "
-              f"{tpeak} B ({tpeak / 2**30:.2f} GiB); {card}")
-        k234 = step_own_inputs(train_step, batches[3], gen, tag="[18]")
-        profile_split("[18] profile of one train step (tools.profile_gpu)",
-                      lambda: train_step(batches[0], gen), card)
+        for b in batches[:3]:
+            train_step(b, gen)
+        step_own_inputs(train_step, batches[3], gen, timed=True, tag="[18]")
         del model, train_step, dataset, batches
         torch.cuda.empty_cache()
-    for name, shapes in (("K1", k1), ("K2-K4", k234)):
-        print(f"[18] {name} at VoD's sites, ms / bound ms: " + "; ".join(
-            f"{' '.join(map(str, key)) if isinstance(key, tuple) else key} "
-            f"{t:.4f} / {b:.4f}" for key, (t, b) in shapes.items()))
 
     # the VoD smoke: the original's fixture, tiny widths and schedule
     with tempfile.TemporaryDirectory() as tmp:
         reset_launch_counts()
-        t0 = time.perf_counter()
         res, records, smoke = vod_smoke.run(tmp, dev.type, SMOKE_EPOCHS)
-        secs = time.perf_counter() - t0
         counts = launch_counts()
         totals += counts
         steps = smoke["train1"]["steps"]
         first, last = vod_smoke.fifths(records)
         bad = vod_smoke.nonfinite_steps(records)
         norms = [r["grad_norm"] for r in records]
-        print(f"[18] VoD smoke ({len(steps)} steps at batch 8, "
-              f"{secs:.2f} s in all, {card}): loss every 10th step "
+        print(f"[18] VoD smoke ({len(steps)} steps at batch 8): loss every "
+              f"10th step "
               f"{[round(r['loss_total'], 4) for r in records[::10]]}; mean of "
               f"the first fifth {first:.4f} -> the last fifth {last:.4f} "
               f"({len(records) // 5} steps each); mAP3D_all "
@@ -2869,26 +2440,22 @@ def phase_vod(dev, card):
               f"non-finite grad_norm at the steps {bad}")
         check(last < first, f"VoD smoke: the loss did not fall ({first} -> "
                             f"{last})")
-        smoke_sites = smoke_kernels(Path(tmp) / "data" / "vod_infos.pkl",
-                                    write_vod_split(Path(tmp)), dev, card)
-    print("[18] K1-K4 at the smoke's sites, ms / bound ms: " + "; ".join(
-        f"{' '.join(map(str, key))} {t:.4f} / {b:.4g}"
-        for key, (t, b) in smoke_sites.items()))
+        smoke_kernels(Path(tmp) / "data" / "vod_infos.pkl",
+                      write_vod_split(Path(tmp)), dev)
     return tuple(int(n) for n in totals)
 
 
-def smoke_kernels(pkl, vod_ann, dev, card):
+def smoke_kernels(pkl, vod_ann, dev):
     """K1-K4 at the VoD smoke's widths (embed_dims 64: 16 channels per
     group, C = 16 for K1 and 2C = 32 for K2-K4, where the full-width sites
     have 64 and 128) on its fixture's own inputs: one train step of the
     model that the smoke's train driver builds (batch 8, one microbatch)
     for K2-K4 at each map shape, then one eval step of that model for K1
-    at each site, each against its plain version, timed, with its bound.
+    at each site, each against its plain version.
     The fixture's calibration is the identity, so its eval step's image
     sample points all fall outside the image (K1's image site is all
     zero border); one more eval step of the same model on a frame of
-    `vod_ann` (phase 18's split, a radar-to-camera Tr) puts them in view.
-    Returns {site: (ms, bound ms)}."""
+    `vod_ann` (phase 18's split, a radar-to-camera Tr) puts them in view."""
     from racformer_tpu_torch.config import Config
     from racformer_tpu_torch.data.vod import VoDDataset
     from racformer_tpu_torch.eval import StreamingEvaluator
@@ -2902,11 +2469,10 @@ def smoke_kernels(pkl, vod_ann, dev, card):
     model, _, train_step, dataset, batch = build(cfg, dev, SEED,
                                                  synthetic=False)
     print(f"[18] the smoke's model: C={model.embed_dims}, "
-          f"Q={cfg['model']['num_query']}, {model.image_hw}, batch {batch} "
-          f"({card})")
+          f"Q={cfg['model']['num_query']}, {model.image_hw}, batch {batch}")
     sample = to_device(dataset.batch(list(range(batch))), dev)
     gen = torch.Generator().manual_seed(SEED + 2)
-    sites = step_own_inputs(train_step, sample, gen, tag="[18] smoke")
+    step_own_inputs(train_step, sample, gen, timed=False, tag="[18] smoke")
     model.eval()
     for name, ann in (("fixture", pkl), ("split", vod_ann)):
         ds = VoDDataset(str(ann), image_hw=model.image_hw,
@@ -2925,12 +2491,10 @@ def smoke_kernels(pkl, vod_ann, dev, card):
         if name == "split":
             check(min(seen) > 0.02, "the smoke's model on the split's frame: "
                                     "image sample points never in view")
-        for site, v in step_fold_inputs(caught, f"[18] smoke, {name}").items():
-            sites[f"gather_fold {name}", site] = v
+        step_fold_inputs(caught, f"[18] smoke, {name}", timed=False)
         del ev, caught
     del model, train_step, dataset
     torch.cuda.empty_cache()
-    return sites
 
 
 HEAD_STEPS = 5  # phase 19's streaming steps per head
@@ -2949,47 +2513,22 @@ def seeded_he_init_(module, generator):
     return module
 
 
-def device_split(fn, runs):
-    """(device busy ms per run, GEMM / convolution device ms per run) of
-    fn() under the profiler, by `tools.profile_gpu.categorize`."""
-    from racformer_tpu_torch.tools.profile_gpu import categorize, kernel_times
-
-    events, busy = profiled(fn, runs)
-    by_op, _ = kernel_times(events, runs)
-    return busy, categorize(by_op).get("matmul/conv", 0.0)
-
-
 def head_steps(model, frames, tag):
-    """HEAD_STEPS streaming steps of `model` on `frames`: (evaluator, steady
-    ms, the steps' peak bytes above what was allocated before them (the
-    phase's other models and windows stay allocated), the launches, device
-    busy and GEMM / conv ms of one more step)."""
+    """HEAD_STEPS streaming steps of `model` on `frames`, each checked
+    finite: (evaluator, the launches)."""
     from racformer_tpu_torch.eval import StreamingEvaluator
 
     ev = StreamingEvaluator(model)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms = []
     for f in frames[:HEAD_STEPS]:
-        t0 = time.perf_counter()
         out = ev.step(f, blocking=False)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         check(bool(torch.isfinite(out["scores"]).all())
               and bool(torch.isfinite(out["bboxes"]).all()),
               f"{tag}: non-finite scores or boxes")
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() - base
-    cache = ev.cache
-    busy, gemm = device_split(lambda: ev.step(frames[HEAD_STEPS],
-                                              blocking=False), 1)
-    ev.cache = cache  # the window of the timed steps, for the comparisons
-    return ev, statistics.median(step_ms[1:]), peak, launches, busy, gemm
+    return ev, launch_counts()
 
 
-def phase_head_dtype(cfg, dev, card):
+def phase_head_dtype(cfg, dev):
     """Phase 19: the bf16 decoder / head (`model.head_dtype=bfloat16`) on
     the flagship's streaming eval step and train step, the eval step
     through the unfolded samplers (`model.fused_gather=False`), and VoVNet
@@ -3014,11 +2553,11 @@ def phase_head_dtype(cfg, dev, card):
     layers = int(cfg["decoder"]["num_layers"])
     m32 = model_of(cfg)
     m16 = model_of(variant(head_dtype="bfloat16"))
-    frames = ring_frames(m32, HEAD_STEPS + 1, 1536, SEED)
+    frames = ring_frames(m32, HEAD_STEPS, 1536, SEED)
     # (a) the streaming eval step with each head, on phase 4's weights and
     # frames; the bf16 head's outputs against the f32 head's on one window
-    ev32, ms32, peak32, l32, busy32, gemm32 = head_steps(m32, frames, "[19] f32")
-    ev16, ms16, peak16, l16, busy16, gemm16 = head_steps(m16, frames, "[19] bf16")
+    ev32, l32 = head_steps(m32, frames, "[19] f32")
+    ev16, l16 = head_steps(m16, frames, "[19] bf16")
     total += np.asarray(l32) + np.asarray(l16)
     check(tuple(l16) == (18 * HEAD_STEPS, 0, 0, 0),
           f"[19] bf16 head: launches {l16} in {HEAD_STEPS} steps, expected K1 "
@@ -3032,13 +2571,8 @@ def phase_head_dtype(cfg, dev, card):
     d_cls = (b["all_cls_scores"][-1] - a["all_cls_scores"][-1]).abs()
     d_box = (b["all_bbox_preds"][-1] - a["all_bbox_preds"][-1]).abs()
     print(f"[19] (a) streaming step, {HEAD_STEPS} steps each on phase 4's "
-          f"weights and frames ({card}): f32 head {ms32:.2f} ms (device busy "
-          f"{busy32:.2f} ms, GEMM / conv {gemm32:.2f} ms, steps' peak {peak32} "
-          f"B = {peak32 / 2**30:.2f} GiB); bf16 head {ms16:.2f} ms (device busy "
-          f"{busy16:.2f} ms, GEMM / conv {gemm16:.2f} ms, steps' peak {peak16} "
-          f"B = {peak16 / 2**30:.2f} GiB; a steps' peak counts from the memory "
-          f"allocated before them: the weights and the phase's other models "
-          f"and windows); K1 launches per step {l16[0] // HEAD_STEPS}")
+          f"weights and frames with the f32 and the bf16 head; K1 launches "
+          f"per step {l16[0] // HEAD_STEPS}")
     print(f"[19] (a) bf16 head against the f32 head on one window (last "
           f"layer): class logits max |d| {d_cls.max().item():.4g}, median "
           f"{d_cls.median().item():.4g}; boxes max |d| {d_box.max().item():.4g}, "
@@ -3048,26 +2582,27 @@ def phase_head_dtype(cfg, dev, card):
     check(bool(torch.isfinite(d_cls).all() and torch.isfinite(d_box).all())
           and d_box.median().item() < 0.5,
           "[19] the bf16 head drifts from the f32 head")
-    # (c) the unfolded samplers: K2's forward at every site, no K1
+    # (c) the unfolded samplers: K2's forward at every site, no K1, and no
+    # decode captured as CUDA graphs (their K2 launches would go uncounted)
     mu = model_of(variant(fused_gather=False))
-    evu, msu, peaku, lu, busyu, gemmu = head_steps(mu, frames, "[19] unfolded")
+    evu, lu = head_steps(mu, frames, "[19] unfolded")
     total += np.asarray(lu)
     want = (0, SITES * layers * HEAD_STEPS, 0, 0)
     check(tuple(lu) == want, f"[19] fused_gather=False: launches {lu}, "
                              f"expected {want}")
+    check(not evu.graphs.plans, "[19] fused_gather=False: a decode was "
+                                "captured as CUDA graphs")
     reset_launch_counts()
     c = mu.decode_window(*args)
     total += np.asarray(launch_counts())
     tol_cls, tol_box = head_bound(a["all_cls_scores"][-1], a["all_bbox_preds"][-1])
     e_cls = (c["all_cls_scores"][-1] - a["all_cls_scores"][-1]).abs().max().item()
     e_box = (c["all_bbox_preds"][-1] - a["all_bbox_preds"][-1]).abs().max().item()
-    print(f"[19] (c) fused_gather=False: {msu:.2f} ms a step (device busy "
-          f"{busyu:.2f} ms, steps' peak {peaku / 2**30:.2f} GiB), launches per step K1 {lu[0] // HEAD_STEPS}, K2 "
-          f"{lu[1] // HEAD_STEPS} (expected {SITES} sites x {layers} "
-          f"iterations); "
-          f"against the folded step on one window: class logits max |d| "
-          f"{e_cls:.4g} (bound {tol_cls:.4g}), boxes max |d| {e_box:.4g} "
-          f"(bound {tol_box:.4g}, phase 5's)")
+    print(f"[19] (c) fused_gather=False: decoded eagerly, launches per step K1 "
+          f"{lu[0] // HEAD_STEPS}, K2 {lu[1] // HEAD_STEPS} (expected {SITES} "
+          f"sites x {layers} iterations); against the folded step on one "
+          f"window: class logits max |d| {e_cls:.4g} (bound {tol_cls:.4g}), "
+          f"boxes max |d| {e_box:.4g} (bound {tol_box:.4g}, phase 5's)")
     check(e_cls <= tol_cls and e_box <= tol_box,
           "[19] the unfolded samplers disagree with the folded step")
     del ev32, ev16, evu, m32, m16, mu, a, b, c, args, feat_cat, lss, radar
@@ -3084,35 +2619,27 @@ def phase_head_dtype(cfg, dev, card):
                                                        (i + 1) * batch))), dev)
                    for i in range(3)]
         gen = torch.Generator().manual_seed(SEED + 1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        step_ms = []
         for i in range(2):
-            t0 = time.perf_counter()
             metrics = train_step(batches[i], gen)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
             losses = {k: float(v) for k, v in metrics.items()}
             check(all(np.isfinite(v) for v in losses.values()),
                   f"[19] {name} head: non-finite losses or grad_norm {losses}")
             check(finite_grads(model), f"[19] {name} head: non-finite gradients")
         lt = launch_counts()
         total += np.asarray(lt)
-        peak = torch.cuda.max_memory_allocated()
         check(tuple(lt) == want, f"[19] {name}-head train launches {lt} in 2 "
                                  f"steps, expected {want}")
         dtypes = sorted({str(p.dtype) for p in model.parameters()})
         check(dtypes == ["torch.float32"], f"[19] parameters became {dtypes}")
         print(f"[19] (b) {name}-head train step (batch {batch}, {accum} "
-              f"microbatches, {card}): first {step_ms[0]:.2f} ms, second "
-              f"{step_ms[1]:.2f} ms, peak {peak} B = {peak / 2**30:.2f} GiB; "
-              f"launches per step K2 {lt[1] // 2}, K3 {lt[2] // 2}, K4 "
-              f"{lt[3] // 2}; losses and grad_norm finite (grad_norm "
-              f"{losses['grad_norm']:.5g}, loss_total "
+              f"microbatches): launches per step K2 {lt[1] // 2}, K3 "
+              f"{lt[2] // 2}, K4 {lt[3] // 2}; losses and grad_norm finite "
+              f"(grad_norm {losses['grad_norm']:.5g}, loss_total "
               f"{losses['loss_total']:.5g}); parameters {dtypes}")
         if name == "bf16":
-            step_own_inputs(train_step, batches[2], gen, tag="[19] (b)")
+            step_own_inputs(train_step, batches[2], gen, timed=False,
+                            tag="[19] (b)")
         del model, opt, train_step, dataset, batches
         torch.cuda.empty_cache()
 
@@ -3123,18 +2650,13 @@ def phase_head_dtype(cfg, dev, card):
 
     x = torch.randn(VOV_INPUT, generator=torch.Generator().manual_seed(SEED))
     x = x.to(dev)
-    outs, times = {}, {}
+    outs = {}
     for dt in (torch.float32, torch.bfloat16):
         with torch.device(dev):
             net = VoVNet("V-99-eSE", dtype=dt)
         seeded_he_init_(net, torch.Generator().manual_seed(SEED)).eval()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             outs[dt] = net(x)
-            times[dt] = (median_ms(lambda: net(x), reps=5, warmup=1),
-                         torch.cuda.max_memory_allocated(),
-                         *device_split(lambda: net(x), 1))
         del net
     shapes = [tuple(o.shape) for o in outs[torch.float32]]
     H, W = VOV_INPUT[1:3]
@@ -3148,12 +2670,9 @@ def phase_head_dtype(cfg, dev, card):
               for o in outs[torch.float32]) and max(rel) < 0.1,
           f"[19] VoVNet outputs degenerate or bf16 off f32 by {rel}")
     print(f"[19] (d) VoVNet V-99-eSE on {VOV_INPUT} (eval, frozen BN, He-normal "
-          f"seeded weights): outputs {shapes}; " + "; ".join(
-              f"{name} {t[0]:.3f} ms (device busy {t[2]:.3f} ms, GEMM / conv "
-              f"{t[3]:.3f} ms), peak {t[1]} B" for name, t in (
-                  ("f32", times[torch.float32]), ("bf16", times[torch.bfloat16])))
-          + f"; bf16 against f32, relative error (norm of the difference over "
-          f"the norm) per stage {', '.join(f'{r:.4g}' for r in rel)}")
+          f"seeded weights): outputs {shapes}; bf16 against f32, relative "
+          f"error (norm of the difference over the norm) per stage "
+          f"{', '.join(f'{r:.4g}' for r in rel)}")
     del outs, x
     with torch.device(dev):
         bev_net, neck = BEVResNet(256), FPNLSS(512 + 2048, 256)
@@ -3164,14 +2683,12 @@ def phase_head_dtype(cfg, dev, card):
     with torch.no_grad():
         feats = bev_net(bev)
         out = neck(feats)
-        ms = median_ms(lambda: neck(bev_net(bev)), reps=5, warmup=1)
     check([tuple(f.shape) for f in feats] == [(1, 64, 64, 512), (1, 32, 32, 1024),
                                                (1, 16, 16, 2048)]
           and tuple(out.shape) == (1, 128, 128, 256)
           and bool(torch.isfinite(out).all()), "[19] BEV nets: bad output")
     print(f"[19] (d) BEVResNet + FPNLSS on (1, 128, 128, 256) f32: stages "
-          f"{[tuple(f.shape) for f in feats]}, out {tuple(out.shape)}, "
-          f"{ms:.3f} ms")
+          f"{[tuple(f.shape) for f in feats]}, out {tuple(out.shape)}")
     print(f"[19] launches of phase 19's runs: K1 {total[0]}, K2 {total[1]}, "
           f"K3 {total[2]}, K4 {total[3]}")
     return tuple(int(n) for n in total)
@@ -3186,26 +2703,15 @@ def finite_outputs(out):
                 and torch.isfinite(out["all_bbox_preds"][-1]).all())
 
 
-def in_turns(a, b, reps=10):
-    """CUDA-event medians of a() and b() timed in turns a, b, b, a: the mean
-    of each one's two medians."""
-    ta, tb, tb2, ta2 = (median_ms(fn, reps=reps, warmup=2) for fn in (a, b, b, a))
-    return (ta + ta2) / 2, (tb + tb2) / 2
-
-
-def site_kernels(model, dev, dtype, tag, seed, turns_with=None):
+def site_kernels(model, dev, dtype, tag, seed):
     """K1 at the three eval sites and K2-K4 at the three train sites of
     `model`'s shapes, `dtype` maps, each against its plain version (the
     wrapper under `force_reference()`) on the same inputs at phases 3's and
     7's tolerances (scaled to the dtype's epsilon), timed, with its bound
-    and, for K2-K4, the library call; with `turns_with`, also timed in
-    turns with its instance of that dtype on the same points (the map and
-    cotangent cast). Returns {kernel: {err, ms, plain_ms, bound_ms,
-    bound_by, library_ms}}, the times summed over the sites."""
+    and, for K2-K4, the library call. Returns {kernel: {err, ms, plain_ms,
+    bound_ms, bound_by, library_ms}}, the times summed over the sites."""
     from racformer_tpu_torch.ops import gather_kernel as gk
 
-    ratios = []
-    other = str(turns_with).removeprefix("torch.")
     gen = torch.Generator(device=dev).manual_seed(seed)
     stats = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                      bound_by=set(), library_ms=0.0)
@@ -3241,14 +2747,6 @@ def site_kernels(model, dev, dtype, tag, seed, turns_with=None):
               f"({by}), share {t_b / t_k:.3f}; library: none")
         check(ok, f"{tag} K1 disagrees with its plain version at {name} {dtype}")
         add("gather_fold", err, t_k, t_p, t_b, by, None)
-        if turns_with is not None:
-            fmap_o = fmap.to(turns_with)
-            t_a, t_o = in_turns(kern, lambda: gk.patch_sample_fold(
-                fmap_o, *pts, fold))
-            ratios.append(t_a / t_o)
-            print(f"{tag} K1 {name:9s} in turns with {other}: {dtype} "
-                  f"{t_a:.4f} ms, {other} {t_o:.4f} ms, ratio {t_a / t_o:.3f}")
-            del fmap_o
     for name, fmap, pts, g, outside in train_site_cases(model, gen, dtype, dev):
         shape = tuple(fmap.shape)
         lib = library_ms(fmap, pts, g)
@@ -3271,44 +2769,24 @@ def site_kernels(model, dev, dtype, tag, seed, turns_with=None):
             check(ok, f"{tag} {kname} disagrees with its plain version at "
                       f"{name} {dtype}")
             add(kname, err, t_k, t_p, t_b, by, t_l)
-        if turns_with is not None:
-            fmap_o, g_o = fmap.to(turns_with), g.to(turns_with)
-            runs_o = patch_runs(fmap_o, pts, g_o)
-            for kname, (kern, _) in patch_runs(fmap, pts, g).items():
-                t_a, t_o = in_turns(kern, runs_o[kname][0])
-                ratios.append(t_a / t_o)
-                print(f"{tag} {kname:18s} {name:9s} in turns with {other}: "
-                      f"{dtype} {t_a:.4f} ms, {other} {t_o:.4f} ms, ratio "
-                      f"{t_a / t_o:.3f}")
-            del fmap_o, g_o, runs_o
-    if ratios:
-        print(f"{tag} {dtype} / {other} time in turns over the 12 kernel "
-              f"sites: {min(ratios):.3f}-{max(ratios):.3f}, median "
-              f"{statistics.median(ratios):.3f}")
     for st in stats.values():
         st["bound_by"] = "/".join(sorted(st["bound_by"]))
     return stats
 
 
 def stream_steps(model, frames, steps):
-    """`steps` streaming steps of `model` on `frames`, each synchronized:
-    (evaluator, each step's ms, outputs finite, launches, peak bytes)."""
+    """`steps` streaming steps of `model` on `frames`: (evaluator, outputs
+    finite, launches)."""
     from racformer_tpu_torch.eval import StreamingEvaluator
 
     ev = StreamingEvaluator(model)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms, finite = [], True
+    finite = True
     for f in frames[:steps]:
-        t0 = time.perf_counter()
         out = ev.step(f, blocking=False)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         finite = finite and bool(torch.isfinite(out["scores"]).all()
                                  and torch.isfinite(out["bboxes"]).all())
-    return (ev, step_ms, finite, launch_counts(),
-            torch.cuda.max_memory_allocated())
+    return ev, finite, launch_counts()
 
 
 def window_pair(model, ev):
@@ -3341,8 +2819,7 @@ def train_pair(cfg, dev):
     """One train step of `cfg`'s model (the train driver's `build`, batch of
     the config, lr 0) with the kernels and one with their plain versions
     from equal weights, batch and draws: (kernel metrics, plain metrics,
-    their gradients, the kernel step's synchronized ms, its peak bytes, its
-    launches, batch, microbatches)."""
+    their gradients, the kernel step's launches, batch, microbatches)."""
     from racformer_tpu_torch.ops import gather_kernel as gk
     from racformer_tpu_torch.train import (Optimizer, make_draws,
                                            make_train_step, split_microbatches)
@@ -3356,15 +2833,9 @@ def train_pair(cfg, dev):
     gen = torch.Generator().manual_seed(SEED + 2)
     draws = [make_draws(tmodel, m, gen) for m in split_microbatches(tb, accum)]
     state = {k: v.clone() for k, v in tmodel.state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
     ma = step(tb, draws=draws)
-    torch.cuda.synchronize()
-    t_step = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     ga = grads_of(tmodel, ma)
     tmodel.load_state_dict(state)
     before = launch_counts()
@@ -3372,7 +2843,7 @@ def train_pair(cfg, dev):
         mb = step(tb, draws=draws)
     check(launch_counts() == before, "force_reference() launched a kernel")
     gb = grads_of(tmodel, mb)
-    return ma, mb, ga, gb, t_step, peak, launches, batch, accum
+    return ma, mb, ga, gb, launches, batch, accum
 
 
 def finite_step(metrics, grads):
@@ -3381,12 +2852,12 @@ def finite_step(metrics, grads):
         bool(torch.isfinite(g).all()) for g in grads.values())
 
 
-def phase_float16(cfg, dev, card):
+def phase_float16(cfg, dev):
     """Phase 20: float16 maps (`model.trunk_dtype` and `decoder.gather_dtype`
     float16, read through `config_kwargs`) at the flagship config's full
     width, seeded random weights: (a) K1-K4 against their plain versions at
-    the flagship sites (`site_kernels`, in turns with bf16); (b) F16_STEPS
-    streaming steps (K1 18 a step; step ms, device busy) and the last window
+    the flagship sites (`site_kernels`); (b) F16_STEPS streaming steps (K1
+    18 a step) and the last window
     decoded with the kernels and with their plain versions (phase 5's
     bound); (c) one train step with the kernels (K2 72, K3 and K4 36) and
     one with their plain versions from equal weights, batch and draws
@@ -3410,13 +2881,12 @@ def phase_float16(cfg, dev, card):
     with torch.device(dev):
         model = RaCFormer(**kwargs)
     random_init_(model, torch.Generator().manual_seed(SEED)).eval()
-    stats = site_kernels(model, dev, f16, "[20]", SEED + 20,
-                         turns_with=torch.bfloat16)
+    stats = site_kernels(model, dev, f16, "[20]", SEED + 20)
     layers = int(cfg["decoder"]["num_layers"])
 
     # (b) the streaming step
-    frames = ring_frames(model, F16_STEPS + 1, 1536, SEED)
-    ev, step_ms, finite, l_eval, peak = stream_steps(model, frames, F16_STEPS)
+    frames = ring_frames(model, F16_STEPS, 1536, SEED)
+    ev, finite, l_eval = stream_steps(model, frames, F16_STEPS)
     check(tuple(l_eval) == (18 * F16_STEPS, 0, 0, 0),
           f"[20] float16 streaming launches {l_eval} in {F16_STEPS} steps, "
           f"expected K1 {18 * F16_STEPS} and no other")
@@ -3424,15 +2894,11 @@ def phase_float16(cfg, dev, card):
     check(feat_cat.dtype == f16,
           f"[20] the cached image pyramid is {feat_cat.dtype}, expected float16")
     tops = [t.float().abs().max().item() for t in (feat_cat, lss, radar)]
-    busy, _ = device_split(lambda: ev.step(frames[F16_STEPS], blocking=False), 1)
     a, b = window_pair(model, ev)
     fin_a, fin_b = finite_outputs(a), finite_outputs(b)
-    steady = statistics.median(step_ms[1:])
-    print(f"[20] (b) float16 streaming step ({card}): {F16_STEPS} steps, "
-          f"steady {steady:.2f} ms (first {step_ms[0]:.2f}), device busy "
-          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / steady):.3f}), peak "
-          f"{peak / 2**30:.2f} GiB; K1 launches per step "
-          f"{l_eval[0] // F16_STEPS}; outputs finite {finite}; largest |value| "
+    print(f"[20] (b) float16 streaming step: {F16_STEPS} steps, K1 launches "
+          f"per step {l_eval[0] // F16_STEPS}; outputs finite {finite}; "
+          f"largest |value| "
           f"of the float16 image pyramid {tops[0]:.4g}, of the cached float32 "
           f"LSS BEV {tops[1]:.4g} and radar BEV {tops[2]:.4g}, which the "
           f"decoder projects into its float16 value maps (float16 max "
@@ -3456,15 +2922,14 @@ def phase_float16(cfg, dev, card):
     torch.cuda.empty_cache()
 
     # (c) one train step with the kernels, one with their plain versions
-    ma, mb, ga, gb, t_step, tpeak, l_train, batch, accum = train_pair(c16, dev)
+    ma, mb, ga, gb, l_train, batch, accum = train_pair(c16, dev)
     per = SITES * layers * accum
     check(tuple(l_train) == (0, 2 * per, per, per),
           f"[20] float16 train step launches {l_train}, expected "
           f"{(0, 2 * per, per, per)}")
     fin_a, fin_b = finite_step(ma, ga), finite_step(mb, gb)
-    print(f"[20] (c) float16 train step (batch {batch}, {accum} microbatches, "
-          f"{card}): {t_step:.2f} ms with the kernels (the first float16 step), "
-          f"peak {tpeak / 2**30:.2f} GiB; launches K2 {l_train[1]}, K3 "
+    print(f"[20] (c) float16 train step (batch {batch}, {accum} microbatches): "
+          f"launches K2 {l_train[1]}, K3 "
           f"{l_train[2]}, K4 {l_train[3]}; loss_total {float(ma['loss_total']):.6g}"
           f" / {float(mb['loss_total']):.6g}, grad_norm "
           f"{float(ma['grad_norm']):.6g} / {float(mb['grad_norm']):.6g} "
@@ -3550,7 +3015,7 @@ def front_only_acts(tag, call):
           f"{tag} the front-only filter did not act")
 
 
-def phase_front(dev, card):
+def phase_front(dev):
     """Phase 21: the fork's front-only configuration (the port's copy of
     racformer_r50_nuimg_704x256_f8_3cam_3rad.py: 3 cameras, 3 radars,
     `eval_front_only`) unreduced, seeded random weights: (a) K1-K4 at its
@@ -3572,7 +3037,6 @@ def phase_front(dev, card):
     from racformer_tpu_torch.model import RaCFormer, config_kwargs, random_init_
     from racformer_tpu_torch.train.__main__ import main as train_main
 
-    t_phase = time.perf_counter()
     cfg = Config.fromfile(str(FRONT_CONFIG))
     kwargs = config_kwargs(cfg)
     layers = int(cfg["decoder"]["num_layers"])
@@ -3596,18 +3060,13 @@ def phase_front(dev, card):
     stats = site_kernels(model, dev, torch.bfloat16, "[21] (a)", SEED + 21)
 
     # (b) the streaming step
-    frames = ring_frames(model, FRONT_STEPS + 1, int(cfg["radar"]["max_points"]),
+    frames = ring_frames(model, FRONT_STEPS, int(cfg["radar"]["max_points"]),
                          SEED)
-    ev, step_ms, finite, l_eval, peak = stream_steps(model, frames, FRONT_STEPS)
+    ev, finite, l_eval = stream_steps(model, frames, FRONT_STEPS)
     launches += l_eval
-    busy, _ = device_split(lambda: ev.step(frames[FRONT_STEPS], blocking=False),
-                           1)
-    steady = statistics.median(step_ms[1:])
-    print(f"[21] (b) streaming step, 3 cameras ({card}): {FRONT_STEPS} steps, "
-          f"steady {steady:.2f} ms (first {step_ms[0]:.2f}), device busy "
-          f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / steady):.3f}), peak "
-          f"{peak / 2**30:.2f} GiB; K1 launches per step "
-          f"{l_eval[0] / FRONT_STEPS:g}; outputs finite {finite}")
+    print(f"[21] (b) streaming step, 3 cameras: {FRONT_STEPS} steps, K1 "
+          f"launches per step {l_eval[0] / FRONT_STEPS:g}; outputs finite "
+          f"{finite}")
     check(tuple(l_eval) == (18 * FRONT_STEPS, 0, 0, 0),
           f"[21] streaming launches {l_eval} in {FRONT_STEPS} steps, expected "
           f"K1 {18 * FRONT_STEPS} and no other")
@@ -3619,12 +3078,11 @@ def phase_front(dev, card):
     torch.cuda.empty_cache()
 
     # (c) one train step with the kernels, one with their plain versions
-    ma, mb, ga, gb, t_step, tpeak, l_train, batch, accum = train_pair(cfg, dev)
+    ma, mb, ga, gb, l_train, batch, accum = train_pair(cfg, dev)
     launches += l_train
     per = SITES * layers * accum
     print(f"[21] (c) train step, 3 cameras (batch {batch}, {accum} "
-          f"microbatches, {card}): {t_step:.2f} ms with the kernels (the first "
-          f"step), peak {tpeak / 2**30:.2f} GiB; launches K2 {l_train[1]}, K3 "
+          f"microbatches): launches K2 {l_train[1]}, K3 "
           f"{l_train[2]}, K4 {l_train[3]}; loss_total "
           f"{float(ma['loss_total']):.6g} / {float(mb['loss_total']):.6g}, "
           f"grad_norm {float(ma['grad_norm']):.6g} / "
@@ -3651,18 +3109,16 @@ def phase_front(dev, card):
               f"read through cameras {list(cams)}")
         for name, extra in (("--streaming", ["--streaming"]), ("offline", [])):
             reset_launch_counts()
-            t0 = time.perf_counter()
             with metrics_calls() as calls:
                 (preds, metrics), text = run_driver(eval_main, [
                     "--config", str(FRONT_MINI_CONFIG), "--override",
                     f"data.val.ann_file={ann}", *extra])
-            secs = time.perf_counter() - t0
             l_drv = launch_counts()
             launches += l_drv
-            rate = [l for l in text.splitlines() if l.startswith("eval:")]
+            line = [l for l in text.splitlines() if l.startswith("eval:")]
             print(f"[21] (d) eval driver {name}: "
-                  f"{rate[0] if rate else 'no eval line'} ({secs:.2f} s in "
-                  f"all); K1 launches {l_drv[0]}; metrics "
+                  f"{line[0] if line else 'no eval line'}; K1 launches "
+                  f"{l_drv[0]}; metrics "
                   f"{json.dumps({k: round(float(v), 4) for k, v in (metrics or {}).items() if isinstance(v, (int, float))})}")
             check(f"eval: {n} samples" in text and '"NDS"' in text,
                   f"[21] eval driver {name}: no eval line or metrics")
@@ -3688,7 +3144,6 @@ def phase_front(dev, card):
             pickle.dump({"infos": infos}, f)
         want = (0, 2 * per, per, per)
         reset_launch_counts()
-        t0 = time.perf_counter()
         with metrics_calls() as calls:
             res, out = run_driver(train_main, [
                 "--config", str(FRONT_CONFIG), "--work-dir",
@@ -3696,20 +3151,14 @@ def phase_front(dev, card):
                 f"data.train.ann_file={train_ann}", f"data.val.ann_file={ann}",
                 "evaluation.interval=1", "evaluation.max_samples=2",
                 "log_interval=1"])
-        secs = time.perf_counter() - t0
         launches += launch_counts()
-        for st in res["steps"]:
-            print(f"[21] (e) train driver step {st['step'] + 1}: host ms "
-                  f"{st['host_ms']:.1f}, loader wait ms {st['wait_ms']:.2f}")
         for sv in res["saves"]:
-            print(f"[21] (e) checkpoint step {sv['step']}: save + verify "
-                  f"{sv['seconds']:.2f} s, {sv['bytes']} B, verified "
-                  f"{sv['verified']}")
+            print(f"[21] (e) checkpoint step {sv['step']}: {sv['bytes']} B, "
+                  f"verified {sv['verified']}")
         for e in res["evals"]:
             print(f"[21] (e) in-training eval @ {e['step']}: {e['samples']} "
-                  f"samples in {e['seconds']:.2f} s, K1 launches "
-                  f"{e['k1_launches']}, NDS {e.get('metrics', {}).get('NDS')}")
-        print(f"[21] (e) train driver: {secs:.2f} s in all")
+                  f"samples, K1 launches {e['k1_launches']}, NDS "
+                  f"{e.get('metrics', {}).get('NDS')}")
         check(res["last_step"] == 2 and "training done" in out,
               "[21] train driver: not 2 steps")
         check_driver_steps("[21] (e) train driver", res, want)
@@ -3728,8 +3177,7 @@ def phase_front(dev, card):
     torch.cuda.empty_cache()
     launches = tuple(int(x) for x in launches)
     print(f"[21] front-only launches on the main path: K1 {launches[0]}, K2 "
-          f"{launches[1]}, K3 {launches[2]}, K4 {launches[3]}; the phase took "
-          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+          f"{launches[1]}, K3 {launches[2]}, K4 {launches[3]}")
     return stats, launches
 
 
@@ -3862,14 +3310,7 @@ def flagship_model(dev):
 
 
 def main(argv):
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", metavar="FILE",
-                        help="profile three steady streaming steps and write "
-                             "the torch.profiler table to FILE")
-    parser.add_argument("--train-profile", metavar="FILE",
-                        help="profile one train step and write the "
-                             "torch.profiler table to FILE")
-    args = parser.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     card = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -3882,45 +3323,35 @@ def main(argv):
           f"{sum(p.numel() for p in model.parameters())} parameters")
 
     max_err, k_ms, p_ms, b_ms, b_by = phase_kernel(model, dev)
-    ev, steady, peak, launches = phase_main(model, dev, args.profile)
+    ev, launches = phase_main(model)
     phase_reference(model, ev)
     del ev
     torch.cuda.empty_cache()
     phase_small(dev)
-    ms_launches, ms_steady, ms_peak = phase_multistream(model, dev, args.profile)
-    off_launches, off_rate = phase_offline(model, dev)
+    ms_launches = phase_multistream(model)
+    off_launches = phase_offline(model)
     patch = phase_patch_kernels(model, dev)
     del model
     torch.cuda.empty_cache()
-    tmodel, tbatch, tlaunches, tsteady, tfirst, tpeak = phase_train(
-        cfg, dev, args.train_profile)
+    tmodel, tbatch, tlaunches = phase_train(cfg, dev)
     phase_train_reference(tmodel, tbatch, cfg, dev)
     del tmodel, tbatch
     torch.cuda.empty_cache()
     phase_lap(cfg, dev, card)
     phase_train_small(dev)
     drv_launches = phase_driver()
-    train_drv, drv_steady, drv_peak = phase_train_driver(cfg, card)
-    worlds, train, evals = phase_ddp_worlds(cfg, card)
-    ddp_launches = tuple(int(x) for x in np.sum([train[n][0] for n in worlds],
-                                                axis=0))
-    ddp_k1 = sum(evals[n][0] for n in worlds)
-    remat_launches = phase_remat(cfg, dev, card)
-    vod_launches = phase_vod(dev, card)
-    head_launches = phase_head_dtype(cfg, dev, card)
-    f16_stats, f16_launches = phase_float16(cfg, dev, card)
-    front_stats, front_launches = phase_front(dev, card)
+    train_drv = phase_train_driver(cfg)
+    cards = torch.cuda.device_count()
+    ddp_launches = phase_ddp_train(cfg, cards)
+    ddp_k1 = phase_ddp_eval(cards)
+    remat_launches = phase_remat(cfg, dev)
+    vod_launches = phase_vod(dev)
+    head_launches = phase_head_dtype(cfg, dev)
+    f16_stats, f16_launches = phase_float16(cfg, dev)
+    front_stats, front_launches = phase_front(dev)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "racformer_tpu"))
     check(not foreign, f"the port imported JAX or the JAX package: {foreign}")
-    print(f"[-] {card}: steady streaming step {steady:.2f} ms, peak memory "
-          f"{peak / 2**30:.2f} GiB; {MS_STREAMS}-stream lockstep step "
-          f"{ms_steady:.2f} ms ({MS_STREAMS * 1e3 / ms_steady:.2f} frames/s), "
-          f"peak memory {ms_peak / 2**30:.2f} GiB; offline {off_rate:.3f} "
-          f"samples/s; train step (batch 2, 2 microbatches) "
-          f"first {tfirst:.2f} ms, steady {tsteady:.2f} ms, peak memory "
-          f"{tpeak / 2**30:.2f} GiB; the train driver's step {drv_steady:.2f} "
-          f"ms, peak {drv_peak / 2**30:.2f} GiB")
     k1_launches = launches + ms_launches + off_launches + drv_launches + \
         train_drv[0] + ddp_k1 + vod_launches[0] + head_launches[0] + \
         front_launches[0]

@@ -23,13 +23,12 @@ replays the captures from then on:
   are overwritten by the next replay.
 
 A decode replays only where it is the same work each time: on CUDA
-tensors, with gradients off, the model in eval mode and the kernels
+tensors, with gradients off, the model in eval mode, its decoder folding
+(`RaCFormer.folds`: the unfolded samplers of `fused_gather=False` launch
+K2, whose launches would go uncounted in a graph) and the kernels
 themselves (not their plain versions under `force_reference()`), keyed on
-the window's shapes and dtypes, the head's dtype and the device. A shape
-whose first decode launched another hand kernel (K2 in the unfolded
-samplers of `fused_gather=False`) is never captured: its launches would go
-uncounted in a graph. The evaluator owns the graphs and their memory pool;
-they are freed with it.
+the window's shapes and dtypes, the head's dtype and the device. The
+evaluator owns the graphs and their memory pool; they are freed with it.
 
 `GRAPH_REPLAYS` counts the graphs replayed; with the span recorder on, the
 open span (`eval.decode_window`) counts them as `graph_replays`, and an
@@ -44,7 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops import deform_attn, gather_kernel, msmv, scatter_kernel
+from ..ops import deform_attn, gather_kernel, msmv
 from ..utils import tracing
 
 GRAPH_REPLAYS = 0  # CUDA graphs replayed by `DecodeGraphs`
@@ -53,7 +52,7 @@ K1_SITES = (msmv, deform_attn)
 # torch's warning at the end of a capture that captured no work (the CUDA
 # tests hold torch to it)
 EMPTY = "The CUDA Graph is empty"
-_ONCE, _NEVER = "once", "never"  # a shape decoded eagerly once; for good
+_ONCE = "once"  # a key decoded eagerly once, captured at its next decode
 
 
 def decode_window(model, window):
@@ -66,16 +65,11 @@ def decode_window(model, window):
 def replay_key(model, window) -> Optional[Tuple]:
     """What a captured decode of `window` is kept under, or None where the
     decode runs eagerly (the module docstring)."""
-    if (model.training or torch.is_grad_enabled()
+    if (model.training or torch.is_grad_enabled() or not model.folds
             or gather_kernel.use_reference(window[0])):
         return None
     return (tuple((tuple(t.shape), t.dtype) for t in window), model.head_dtype,
             window[0].device)
-
-
-def _other_launches():
-    return (gather_kernel.GATHER_LAUNCHES, gather_kernel.CORNER_LAUNCHES,
-            scatter_kernel.LAUNCHES)
 
 
 class _Graph:
@@ -233,12 +227,10 @@ class DecodeGraphs:
         plan = self.plans.get(key)
         if plan is _ONCE:
             plan = self.plans[key] = capture(model, window)
-        if not isinstance(plan, _Plan):
-            launches = _other_launches()
+        if plan is None:
             outs = decode_window(model, window)
-            if key is not None and plan is None:
-                self.plans[key] = (_ONCE if _other_launches() == launches
-                                   else _NEVER)
+            if key is not None:
+                self.plans[key] = _ONCE
             if tracing.recording():
                 tracing.count("eager_decodes", 1)
             return outs

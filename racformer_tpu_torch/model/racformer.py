@@ -85,6 +85,9 @@ class RaCFormer(nn.Module):
         self.bev_size = tuple(bev_size)
         self.depth_bins = depth_bins
         self.trunk_dtype, self.head_dtype = trunk_dtype, head_dtype
+        # the eval decode samples through K1 (`eval.graphs` captures only
+        # such a decode)
+        self.folds = fused_gather is not False
         C = embed_dims
         self.img_backbone = ResNet50(dtype=trunk_dtype)
         self.img_neck = FPN((256, 512, 1024, 2048), C)

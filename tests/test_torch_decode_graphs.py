@@ -2,7 +2,7 @@
 tiny config of `test_torch_tracing.py`.
 
 On the CPU: the evaluator decodes eagerly and its span counter says so;
-the capture cuts the decode at each K1 call and span (CUDA graphs stood in
+only a model whose decoder folds has a replay key; the capture cuts the decode at each K1 call and span (CUDA graphs stood in
 for by a stub), drops a cut that captured nothing and leaves the K1 call
 sites and the span listener as it found them; a replay copies the window
 into the plan's inputs; the pc_range tensors made once leave the head's
@@ -84,6 +84,23 @@ def test_cpu_decodes_eagerly_and_counts_it(frames):
     tracing.disable()
     assert decode_counts() == [{"eager_decodes": 1}] * 4
     assert ev.graphs.plans == {} and graphs.GRAPH_REPLAYS == replays
+
+
+@pytest.mark.parametrize("fused_gather, folds", [(None, True), (True, True),
+                                                 (False, False)])
+def test_only_a_folding_decoder_is_captured(frames, fused_gather, folds,
+                                            monkeypatch):
+    """With the kernels taken (as on a card), a decode has a replay key
+    exactly when the model's decoder folds: the unfolded samplers launch K2,
+    which a graph would hide from its counter."""
+    model = RaCFormer(**TINY, decoder={"gather_dtype": torch.float32},
+                      fused_gather=fused_gather).eval()
+    ev = StreamingEvaluator(model)
+    ev.step(frames[0])
+    monkeypatch.setattr(gather_kernel, "use_reference", lambda x: False)
+    assert model.folds is folds
+    with torch.no_grad():
+        assert (graphs.replay_key(model, ev.cache) is not None) is folds
 
 
 class StubGraph:
