@@ -29,8 +29,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      racformer_tpu_torch/configs/racformer_r50_nuimg_704x256_f8.py with
      seeded random weights, fed seeded synthetic ring-camera frames through
      `StreamingEvaluator.step`; K1 must launch 18 times per step (3 sites x 6
-     decoder iterations); the decoder replayed as CUDA graphs from the
-     second step, and the last window's replay bitwise its eager decode;
+     decoder iterations); the encoder and the decoder replayed as CUDA
+     graphs from the second step, the last window's replay bitwise its
+     eager decode, and (a fresh evaluator, deterministic algorithms) a
+     frame's replayed encode bitwise its eager encode;
      on one more step, the in-view share of the image sample points and K1
      on the step's own inputs at each site (their alignment, against the
      plain version, the distinct-column share);
@@ -585,12 +587,15 @@ def phase_main(model):
     launches = gk.LAUNCHES
     check(launches == 18 * STEPS,
           f"K1 launched {launches} times in {STEPS} steps, expected {18 * STEPS}")
-    (plan,) = ev.graphs.plans.values()
+    (plan,) = ev.decoder_graphs.plans.values()
+    (enc,) = ev.encoder_graphs.plans.values()
     replays = graphs.GRAPH_REPLAYS - replays
-    check(replays == plan.graphs * (STEPS - 1),
+    check(replays == (enc.graphs + plan.graphs) * (STEPS - 1),
           f"{replays} CUDA graphs replayed in {STEPS} steps, expected "
-          f"{plan.graphs} in each step after the first")
+          f"{enc.graphs} + {plan.graphs} (encoder + decoder) in each step "
+          f"after the first")
     exact = replay_equals_eager(model, ev)
+    enc_exact = encode_replay_equals_eager(model, frames)
     head = model.pts_bbox_head
     n_boxes = min(300, head.num_query * head.num_classes)
     for out in outs:
@@ -599,10 +604,13 @@ def phase_main(model):
               and bool(torch.isfinite(out["bboxes"]).all()),
               "non-finite scores or boxes")
     print(f"[4] {STEPS} streaming steps: K1 launches {launches} "
-          f"({launches // STEPS} per step); the decoder replayed as "
-          f"{plan.graphs} CUDA graphs from step 2, the last window's replay "
+          f"({launches // STEPS} per step); the encoder replayed as "
+          f"{enc.graphs} and the decoder as {plan.graphs} CUDA graphs from "
+          f"step 2, the last window's replay "
           f"{'bitwise equal to' if exact else 'DIFFERS from'} its eager "
-          f"decode; outputs finite, boxes "
+          f"decode, a frame's encode replayed (deterministic algorithms) "
+          f"{'bitwise equal to' if enc_exact else 'DIFFERS from'} its eager "
+          f"encode; outputs finite, boxes "
           f"{tuple(outs[-1]['bboxes'].shape)}, valid boxes in last step "
           f"{int(outs[-1]['valid'].sum())}")
 
@@ -627,15 +635,48 @@ def replay_equals_eager(model, ev):
     from racformer_tpu_torch.eval import graphs
 
     replays = graphs.GRAPH_REPLAYS
-    (plan,) = ev.graphs.plans.values()
+    (plan,) = ev.decoder_graphs.plans.values()
     with torch.no_grad():
         replayed = {k: v.clone() for k, v in
-                    ev.graphs.decode(model, ev.cache).items()}
+                    ev.decoder_graphs(model, ev.cache).items()}
         check(graphs.GRAPH_REPLAYS - replays == plan.graphs,
               "the last window's decode did not replay")
         eager = graphs.decode_window(model, ev.cache)
     exact = all(torch.equal(replayed[k], eager[k]) for k in eager)
     check(exact, "a replayed decode differs from the eager decode of its window")
+    return exact
+
+
+def encode_replay_equals_eager(model, frames):
+    """A fresh evaluator over three frames (eager, captured, replayed) under
+    deterministic algorithms (the encoder's `index_add_`, the LSS splat and
+    the pillar sums, otherwise adds in the order its atomics land); the
+    encoder's and the decoder's graphs replayed in each step after the
+    first; then the last frame's encode replayed and run eagerly, and the
+    outputs (image pyramid, LSS and radar BEV maps) checked bit for bit."""
+    from racformer_tpu_torch.eval import StreamingEvaluator, graphs
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ev = StreamingEvaluator(model)
+        replays = graphs.GRAPH_REPLAYS
+        for frame in frames[:3]:
+            ev.step(frame, blocking=False)
+        (enc,) = ev.encoder_graphs.plans.values()
+        (dec,) = ev.decoder_graphs.plans.values()
+        check(graphs.GRAPH_REPLAYS - replays == 2 * (enc.graphs + dec.graphs),
+              "the encoder or the decoder did not replay in steps 2 and 3")
+        with torch.no_grad():
+            frame = tuple(x.clone() for x in enc.inputs)
+            replayed = [x.clone() for x in ev.encoder_graphs(model, frame)]
+            check(graphs.GRAPH_REPLAYS - replays
+                  == 2 * (enc.graphs + dec.graphs) + enc.graphs,
+                  "the last frame's encode did not replay")
+            eager = graphs.encode_frame(model, frame)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    exact = all(torch.equal(r, e) for r, e in zip(replayed, eager))
+    check(exact, "a replayed encode differs from the eager encode of its frame")
     return exact
 
 
@@ -2590,7 +2631,7 @@ def phase_head_dtype(cfg, dev):
     want = (0, SITES * layers * HEAD_STEPS, 0, 0)
     check(tuple(lu) == want, f"[19] fused_gather=False: launches {lu}, "
                              f"expected {want}")
-    check(not evu.graphs.plans, "[19] fused_gather=False: a decode was "
+    check(not evu.decoder_graphs.plans, "[19] fused_gather=False: a decode was "
                                 "captured as CUDA graphs")
     reset_launch_counts()
     c = mu.decode_window(*args)

@@ -12,10 +12,11 @@ first frame).
 independent scene streams in lockstep, with per-stream scene resets inside
 the step, and `run_multistream` drives it over a dataset (the throughput
 protocol). Both steps shift the window through the one `_window` function,
-so B = 1 lockstep equals `step()` exactly. On a CUDA device both decode the
-window through `DecodeGraphs` (`eval/graphs.py`): eagerly at the first
-window of a shape, as replayed CUDA graphs from the second on, which copy
-the window into their inputs.
+so B = 1 lockstep equals `step()` exactly. On a CUDA device both encode the
+frame through `EncodeGraphs` and decode the window through `DecodeGraphs`
+(`eval/graphs.py`): eagerly at the first call of a shape, as replayed CUDA
+graphs from the second on, which copy the frame or the window into their
+inputs.
 """
 
 from __future__ import annotations
@@ -26,9 +27,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..model.racformer import RaCFormer, preprocess_images
+from ..model.racformer import RaCFormer
 from .decode import decode_boxes, decode_config
-from .graphs import DecodeGraphs
+from .graphs import ENCODED, DecodeGraphs, EncodeGraphs
 from ..utils import distributed, tracing
 from .offline import gather_gt_sample, synchronize
 
@@ -53,7 +54,8 @@ class StreamingEvaluator:
         self.cache = None
         self.decode_cfg = decode_config(eval_cfg)
         self.steps = 0  # steps made: the step id of their spans
-        self.graphs = DecodeGraphs()
+        self.encoder_graphs = EncodeGraphs()
+        self.decoder_graphs = DecodeGraphs()
 
     def reset(self):
         """Call at scene boundaries (a new scene must not see old frames)."""
@@ -64,10 +66,11 @@ class StreamingEvaluator:
         """[B, ...] newest frame + [B, T, ...] window -> the shifted window.
         A stream whose `reset` is True (every stream when there is no
         window yet) restarts from the new frame, duplicated across the
-        window."""
+        window. The window is a tensor of its own, never `new` (a replayed
+        encode's output, overwritten by the next replay)."""
         boot = new[:, None].expand(new.shape[0], self.T, *new.shape[1:])
         if old is None:
-            return boot.contiguous()
+            return boot.clone(memory_format=torch.contiguous_format)
         shifted = torch.cat([new[:, None], old[:, : self.T - 1]], dim=1)
         if reset is None:
             return shifted
@@ -82,18 +85,8 @@ class StreamingEvaluator:
         tensors on the device, `ts`: [B] float32 scene-relative seconds),
         shift the windows, decode them and decode the boxes."""
         with tracing.span("eval.encode_frame"):
-            imgs = preprocess_images(t["imgs"])
-            H = imgs.shape[2]
-            radar = []
-            for key in ("radar_depth", "radar_rcs"):
-                m = t[key].float()
-                if m.dim() == 3:  # column form [B, N, W]: the rasterizer smears
-                    m = m[:, :, None, :].expand(m.shape[0], m.shape[1], H,  # columns
-                                                m.shape[2])
-                radar.append(m)
-            feat_cat, lss, rbev, _ = self.model.encode_frame(
-                imgs, t["radar_points"].float(), t["radar_mask"].bool(), radar[0],
-                radar[1], t["img2lidar"].float())
+            feat_cat, lss, rbev = self.encoder_graphs(
+                self.model, tuple(t[k] for k in ENCODED))
             new = (feat_cat, lss, rbev, t["lidar2img"].float(), ts)
         with tracing.span("eval.window"):
             # without a window every stream restarts (step_batch checks that
@@ -101,7 +94,7 @@ class StreamingEvaluator:
             old = self.cache or (None,) * len(new)
             self.cache = tuple(self._window(n, o, reset) for n, o in zip(new, old))
         with tracing.span("eval.decode_window"):
-            outs = self.graphs.decode(self.model, self.cache)
+            outs = self.decoder_graphs(self.model, self.cache)
         with tracing.span("eval.decode_boxes"):
             return decode_boxes(outs["all_cls_scores"][-1],
                                 outs["all_bbox_preds"][-1], **self.decode_cfg)

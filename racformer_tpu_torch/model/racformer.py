@@ -32,6 +32,7 @@ from ..nn.layers import BatchNorm
 from ..nn.pillar_encoder import PillarFeatureNet, radar_bev_conv
 from ..nn.resnet import ResNet50
 from ..nn.view_transformer import LSSViewTransformer
+from ..ops import device_constant
 from ..ops.msmv import level_concat
 from ..ops.pillars import PillarGrid
 from ..utils import tracing
@@ -45,9 +46,8 @@ def preprocess_images(imgs: torch.Tensor, bgr_to_rgb: bool = True) -> torch.Tens
     x = imgs.float()
     if bgr_to_rgb:
         x = x.flip(-1)
-    mean = torch.tensor(IMG_MEAN, device=x.device)
-    std = torch.tensor(IMG_STD, device=x.device)
-    return (x - mean) / std
+    return (x - device_constant(IMG_MEAN, x.device)) / device_constant(
+        IMG_STD, x.device)
 
 
 class RaCFormer(nn.Module):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from . import device_constant
+
 
 def make_frustum(input_size, downsample: int, bin_values: torch.Tensor):
     """Frustum template [D, Hf, Wf, 3] of (x_pix, y_pix, depth) in
@@ -41,8 +43,8 @@ def frustum_grid(frustum, img2lidar, grid_lower, grid_interval, grid_size):
     uvd1 = torch.cat([frustum[..., 0:2] * d, frustum[..., 2:3],
                       torch.ones_like(d)], dim=-1)
     xyz = torch.einsum("nij,dhwj->ndhwi", img2lidar[:, :3, :], uvd1)
-    lo = torch.tensor(grid_lower, dtype=xyz.dtype, device=xyz.device)
-    step = torch.tensor(grid_interval, dtype=xyz.dtype, device=xyz.device)
+    lo = device_constant(tuple(grid_lower), xyz.device, xyz.dtype)
+    step = device_constant(tuple(grid_interval), xyz.device, xyz.dtype)
     ci = ((xyz - lo) / step).to(torch.int64)
     valid = ((ci[..., 0] >= 0) & (ci[..., 0] < nx)
              & (ci[..., 1] >= 0) & (ci[..., 1] < ny)

@@ -1,5 +1,5 @@
-"""The streaming decoder replayed as CUDA graphs (`eval/graphs.py`), at the
-tiny config of `test_torch_tracing.py`.
+"""The streaming decoder and encoder replayed as CUDA graphs
+(`eval/graphs.py`), at the tiny config of `test_torch_tracing.py`.
 
 On the CPU: the evaluator decodes eagerly and its span counter says so;
 only a model whose decoder folds has a replay key; the capture cuts the decode at each K1 call and span (CUDA graphs stood in
@@ -11,7 +11,14 @@ replayed decodes equal eager ones bit for bit, at B = 1 and at B = 4 with
 staggered resets, with K1 launched as often; results handed out stay the
 caller's, and the window the evaluator's own after the capture; a capture
 of no work leaves no graph; a decode with gradients or in train mode never
-replays. No JAX, so on the card:
+replays. The encoder likewise: on the CPU it encodes eagerly and counts
+it; only eval mode without gradients on a card has a key, one for each
+batch size; its capture cuts at `model.trunk` and `model.bev`; a replay
+copies the frame into the plan's inputs; the image normalization and the
+LSS grid's constants made once leave the encode unchanged. On a card:
+replayed encodes equal eager ones bit for bit at B = 1 and B = 2, a window
+is left as it was by the next frame's replay, and a stream's results equal
+those of an evaluator that encodes eagerly. No JAX, so on the card:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_decode_graphs.py
 """
@@ -26,9 +33,11 @@ from racformer_tpu_torch.data import SyntheticDataset
 from racformer_tpu_torch.eval import StreamingEvaluator, graphs
 from racformer_tpu_torch.eval.streaming import prepare_frame
 from racformer_tpu_torch.model import RaCFormer, random_init_
+from racformer_tpu_torch.model import racformer
 from racformer_tpu_torch.nn import bev_sampling, head, img_sampling
 from racformer_tpu_torch import ops
-from racformer_tpu_torch.ops import bbox_codec, deform_attn, gather_kernel, msmv
+from racformer_tpu_torch.ops import (bbox_codec, bev_pool, deform_attn,
+                                     gather_kernel, msmv)
 from racformer_tpu_torch.utils import tracing
 
 TINY = dict(num_cams=2, num_frames=2, embed_dims=64, num_query=12,
@@ -73,6 +82,17 @@ def decode_counts():
     return [r.counts for r in tracing.records() if r.name == "eval.decode_window"]
 
 
+def encode_counts():
+    return [r.counts for r in tracing.records() if r.name == "eval.encode_frame"]
+
+
+def uploaded(fs, device="cpu"):
+    """The encoder's inputs (`graphs.ENCODED`) of frames `fs`, stacked
+    [B, ...] as the evaluator uploads them."""
+    return tuple(torch.from_numpy(np.stack([np.asarray(f[k]) for f in fs]))
+                 .to(device) for k in graphs.ENCODED)
+
+
 def test_cpu_decodes_eagerly_and_counts_it(frames):
     ev = StreamingEvaluator(tiny_model())
     replays = graphs.GRAPH_REPLAYS
@@ -83,7 +103,7 @@ def test_cpu_decodes_eagerly_and_counts_it(frames):
     ev.step_batch(frames[3:5], [True, True])
     tracing.disable()
     assert decode_counts() == [{"eager_decodes": 1}] * 4
-    assert ev.graphs.plans == {} and graphs.GRAPH_REPLAYS == replays
+    assert ev.decoder_graphs.plans == {} and graphs.GRAPH_REPLAYS == replays
 
 
 @pytest.mark.parametrize("fused_gather, folds", [(None, True), (True, True),
@@ -230,6 +250,119 @@ def test_device_constants_leave_the_head_unchanged(frames, monkeypatch):
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
+def test_cpu_encodes_eagerly_and_counts_it(frames):
+    ev = StreamingEvaluator(tiny_model())
+    replays = graphs.GRAPH_REPLAYS
+    tracing.enable()
+    for f in frames[:3]:
+        ev.step(f)
+    ev.reset()
+    ev.step_batch(frames[3:5], [True, True])
+    tracing.disable()
+    assert encode_counts() == [{"eager_encodes": 1}] * 4
+    assert ev.encoder_graphs.plans == {} and graphs.GRAPH_REPLAYS == replays
+
+
+@pytest.mark.parametrize("training, grad", [(False, False), (True, False),
+                                            (False, True), (True, True)])
+def test_only_an_eval_encode_without_gradients_is_captured(
+        frames, training, grad, monkeypatch):
+    """On a card (the CPU taken for one here), an encode has a key exactly
+    in eval mode with gradients off; the key tells batch sizes apart."""
+    monkeypatch.setattr(graphs, "DEVICES", ("cpu", "cuda"))
+    model = tiny_model().train(training)
+    with torch.set_grad_enabled(grad):
+        keys = [graphs.encode_key(model, uploaded(frames[:b])) for b in (1, 2)]
+    if training or grad:
+        assert keys == [None, None]
+    else:
+        assert None not in keys and keys[0] != keys[1]
+    monkeypatch.setattr(graphs, "DEVICES", ("cuda",))
+    with torch.no_grad():
+        assert graphs.encode_key(tiny_model(), uploaded(frames[:1])) is None
+
+
+def test_an_encode_capture_cuts_at_the_trunk_and_the_bev(frames, monkeypatch):
+    """The encode's graphs: the normalization, then one inside each of
+    `model.trunk` and `model.bev` (the stub keeps the cuts between and after
+    them, which torch reports empty on a card); the capture calls no K1 and
+    gives the eager encode's outputs."""
+    model = tiny_model()
+    frame = uploaded(frames[:1])
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", StubGraph)
+    with torch.no_grad():
+        root, outs = graphs._Capture(None).run(
+            lambda: graphs.encode_frame(model, frame))
+        want = graphs.encode_frame(model, frame)
+    assert tree(root) == ["graph", ("model.trunk", ["graph"]), "graph",
+                          ("model.bev", ["graph"]), "graph"]
+    assert tracing._listener is None
+    assert len(outs) == len(want) == 3
+    for o, w in zip(outs, want):
+        assert torch.equal(o, w)
+
+
+def stub_capture(fn, model, inputs):
+    """`graphs.capture` without the CUDA streams, on `StubGraph`s."""
+    root, outs = graphs._Capture(None).run(lambda: fn(model, inputs))
+    return graphs._Plan(tuple(inputs), root, outs)
+
+
+def test_encodes_replay_a_plan_per_batch_size(frames, monkeypatch):
+    """With the CPU taken for a card and stub graphs: B = 1 (`step`) and
+    B = 2 (`step_batch`) each encode eagerly once, are captured at their
+    second encode and replayed from then on, each under its own key; a
+    replay copies the frame into the plan's inputs, which stay the plan's
+    own, and counts its graphs."""
+    monkeypatch.setattr(graphs, "DEVICES", ("cpu", "cuda"))
+    monkeypatch.setattr(graphs, "capture", stub_capture)
+    monkeypatch.setattr(StubGraph, "replay", lambda self: None, raising=False)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", StubGraph)
+    ev = StreamingEvaluator(tiny_model())
+    replays = graphs.GRAPH_REPLAYS
+    tracing.enable()
+    for f in frames[:3]:
+        ev.step(f)
+    ev.reset()
+    for t in range(3):
+        ev.step_batch(frames[t:t + 2], [t == 0] * 2)
+    tracing.disable()
+    one, two = ev.encoder_graphs.plans.values()
+    assert one.graphs == two.graphs == 5  # the stub keeps the empty cuts
+    assert encode_counts() == ([{"eager_encodes": 1}] + [
+        {"graph_replays": 5}] * 2) * 2
+    assert graphs.GRAPH_REPLAYS - replays == 4 * 5
+    assert [p.inputs[0].shape[0] for p in (one, two)] == [1, 2]
+    for plan, last in ((one, frames[2:3]), (two, frames[2:4])):
+        for x, want in zip(plan.inputs, uploaded(last)):
+            assert torch.equal(x, want)
+
+
+def test_device_constants_leave_the_encoder_unchanged(frames, monkeypatch):
+    """The image normalization's mean and std and the LSS grid's lower
+    corner and interval made once give the encode bit for bit as tensors
+    made at each call did."""
+    model = tiny_model()
+    frame = uploaded(frames[:2])
+    x = frame[0]
+    want = (x.float().flip(-1) - torch.tensor(racformer.IMG_MEAN)) / \
+        torch.tensor(racformer.IMG_STD)
+    assert torch.equal(racformer.preprocess_images(x), want)
+    view = model.img_lss_view_transformer
+    grid = lambda: bev_pool.frustum_grid(
+        view.frustum, frame[5][0].float(), view.grid_lower, view.grid_interval,
+        view.grid_size)
+    with torch.no_grad():
+        want, want_grid = graphs.encode_frame(model, frame), grid()
+        per_call = lambda values, device, dtype=torch.float32: torch.tensor(
+            values, dtype=dtype, device=device)
+        for mod in (racformer, bev_pool):
+            monkeypatch.setattr(mod, "device_constant", per_call)
+        got, got_grid = graphs.encode_frame(model, frame), grid()
+    for g, w in zip(got + got_grid, want + want_grid):
+        assert torch.equal(g, w)
+
+
 # --- on a card ------------------------------------------------------------
 
 
@@ -290,7 +423,7 @@ def test_replayed_decodes_equal_eager_ones(cuda, deterministic, frames, batch,
     tracing.enable()
     got, got_k1 = run_steps(ev, steps)
     tracing.disable()
-    (plan,) = ev.graphs.plans.values()
+    (plan,) = ev.decoder_graphs.plans.values()
     assert isinstance(plan, graphs._Plan)
     assert decode_counts() == [{"eager_decodes": 1}] + [
         {"graph_replays": plan.graphs}] * (len(steps) - 1)
@@ -325,7 +458,7 @@ def test_results_stay_the_callers(cuda, frames):
         assert first[k].data_ptr() != second[k].data_ptr()
         assert torch.equal(first[k], kept[k]), k
     assert not torch.equal(first["scores"], second["scores"])
-    (plan,) = ev.graphs.plans.values()
+    (plan,) = ev.decoder_graphs.plans.values()
     assert not any(t is x for t in ev.cache for x in plan.inputs)
 
 
@@ -346,7 +479,74 @@ def test_grad_or_train_mode_never_replays(cuda, frames):
         model.eval()
     assert decode_counts() == [{"eager_decodes": 1}]
     with torch.enable_grad():
-        ev.graphs.decode(model, ev.cache)
+        ev.decoder_graphs(model, ev.cache)
     assert graphs.GRAPH_REPLAYS == replays
     ev.step(frames[4])
     assert graphs.GRAPH_REPLAYS > replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+def test_replayed_encodes_equal_eager_ones(cuda, deterministic, frames, batch):
+    """Four frames' encodes: the first eager, the second captured, each
+    from the second replayed as the three graphs of the normalization,
+    `model.trunk` and `model.bev`, bit for bit the eager encode."""
+    model = tiny_model(cuda)
+    encodes = graphs.EncodeGraphs()
+    replays = graphs.GRAPH_REPLAYS
+    with torch.no_grad():
+        for t in range(4):
+            frame = uploaded(frames[t:t + batch], cuda)
+            got = [x.clone() for x in encodes(model, frame)]
+            want = graphs.encode_frame(model, frame)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), t
+    (plan,) = encodes.plans.values()
+    assert tree(plan.root) == ["graph", ("model.trunk", ["graph"]),
+                               ("model.bev", ["graph"])]
+    assert graphs.GRAPH_REPLAYS - replays == 3 * plan.graphs == 9
+
+
+@pytest.mark.cuda
+def test_a_window_outlives_the_next_replay(cuda, frames):
+    """The window built from a frame, at a scene start and shifted, is left
+    as it was by the next frame's replayed encode: it shares no memory with
+    the plan's outputs."""
+    ev = StreamingEvaluator(tiny_model(cuda))
+    for f in frames[:2]:
+        ev.step(f)
+    ev.reset()
+    (plan,) = ev.encoder_graphs.plans.values()
+    outs = {x.untyped_storage().data_ptr() for x in plan.outs}
+    for f, g in zip(frames[2:5], frames[3:6]):
+        ev.step(f)
+        held, kept = ev.cache, [x.clone() for x in ev.cache]
+        assert not outs & {x.untyped_storage().data_ptr() for x in held}
+        ev.step(g)
+        for h, k in zip(held, kept):
+            assert torch.equal(h, k)
+
+
+@pytest.mark.cuda
+def test_replayed_encodes_leave_the_results_unchanged(cuda, deterministic,
+                                                      frames, monkeypatch):
+    """Six frames through `step` (a scene start, four shifted, a new
+    scene): the results equal those of the same evaluator with its encoder
+    kept eager, bit for bit."""
+    model = tiny_model(cuda)
+    steps = [(f, i in (0, 4)) for i, f in enumerate(frames)]
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "encode_key", lambda *a: None)
+        ev = StreamingEvaluator(model)
+        want, _ = run_steps(ev, steps)
+        assert ev.encoder_graphs.plans == {}
+    ev = StreamingEvaluator(model)
+    tracing.enable()
+    got, _ = run_steps(ev, steps)
+    tracing.disable()
+    (plan,) = ev.encoder_graphs.plans.values()
+    assert encode_counts() == [{"eager_encodes": 1}] + [
+        {"graph_replays": plan.graphs}] * (len(steps) - 1)
+    for t, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=f"t={t} {k}")
