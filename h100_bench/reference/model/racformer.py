@@ -1,7 +1,8 @@
 """RaCFormer detector assembly (port of `racformer_tpu/model/racformer.py`).
 
-ResNet-50 + FPN over all cameras of a frame, CustomFPN -> radar-assisted LSS
-view transform, the radar pillar branch, and the polar-query decoder head.
+The image trunk (ResNet-50 unless the configuration names another,
+`build_trunk`) + FPN over all cameras of a frame, CustomFPN -> radar-assisted
+LSS view transform, the radar pillar branch, and the polar-query decoder head.
 `encode_frame` / `decode_window` split the network so the streaming
 evaluator keeps a ring buffer of per-frame features and encodes only the
 newest frame per step (both without gradients); `forward` is the offline
@@ -20,6 +21,9 @@ its coordinate and box math stays f32 and its outputs are f32).
 
 from __future__ import annotations
 
+import importlib
+import re
+from pathlib import Path
 from typing import Any, Optional
 
 import torch
@@ -35,6 +39,7 @@ from ..nn.view_transformer import LSSViewTransformer
 from ..ops.msmv import level_concat
 from ..ops.pillars import PillarGrid
 
+NN_DIR = Path(__file__).resolve().parents[1] / "nn"
 IMG_MEAN = (123.675, 116.280, 103.530)  # RGB
 IMG_STD = (58.395, 57.120, 57.375)
 
@@ -47,6 +52,29 @@ def preprocess_images(imgs: torch.Tensor, bgr_to_rgb: bool = True) -> torch.Tens
     mean = torch.tensor(IMG_MEAN, device=x.device)
     std = torch.tensor(IMG_STD, device=x.device)
     return (x - mean) / std
+
+
+def build_trunk(spec: Optional[dict], dtype: torch.dtype) -> nn.Module:
+    """The image trunk a configuration's `img_backbone` names, in mmdet's
+    form `{"type": <class>, **kwargs}`: the class `type` of the file
+    `nn/<type in lower case>.py` (`VoVNet`: `nn/vovnet.py`), built with
+    `dtype=` and the kwargs. None builds ResNet-50. A trunk maps
+    [B, H, W, 3] to the stride-4, 8, 16 and 32 maps channel-last and
+    states their widths in `out_channels`; a new trunk is one new file."""
+    if spec is None:
+        return ResNet50(dtype=dtype)
+    kwargs = dict(spec)
+    name = kwargs.pop("type", None)
+    if not (isinstance(name, str) and re.fullmatch(r"[A-Za-z]\w*", name)
+            and (NN_DIR / f"{name.lower()}.py").is_file()):
+        raise ValueError(f"img_backbone type {name!r}: no trunk file "
+                         f"nn/<type in lower case>.py in {NN_DIR}")
+    package = __package__.rsplit(".", 1)[0]
+    cls = getattr(importlib.import_module(f"{package}.nn.{name.lower()}"), name, None)
+    if not isinstance(cls, type):
+        raise ValueError(f"img_backbone type {name!r}: nn/{name.lower()}.py "
+                         f"defines no class {name}")
+    return cls(dtype=dtype, **kwargs)
 
 
 class RaCFormer(nn.Module):
@@ -63,7 +91,8 @@ class RaCFormer(nn.Module):
                  head_dtype: torch.dtype = torch.float32,
                  query_denoising: bool = True, max_gt: int = 64,
                  bn_frame0_only: bool = False,
-                 fused_gather: Optional[bool] = None):
+                 fused_gather: Optional[bool] = None,
+                 img_backbone: Optional[dict] = None):
         """Arguments as the JAX `RaCFormer`'s fields. `decoder` is the
         config file's decoder block (num_layers, d_region_list, num_points,
         ...), merged over the defaults; its `gather_dtype` sets the BEV value
@@ -75,7 +104,8 @@ class RaCFormer(nn.Module):
         `fused_gather`: None or True samples the decoder's three sites with
         the fold gather (K1) in eval mode, False with the per-point sampler
         (K2's forward), as the JAX package's unfused path; train mode always
-        samples every point."""
+        samples every point. `img_backbone`: the image trunk
+        (`build_trunk`), ResNet-50 when None."""
         super().__init__()
         self.num_cams, self.num_frames = num_cams, num_frames
         self.bn_frame0_only = bn_frame0_only
@@ -85,9 +115,10 @@ class RaCFormer(nn.Module):
         self.depth_bins = depth_bins
         self.trunk_dtype, self.head_dtype = trunk_dtype, head_dtype
         C = embed_dims
-        self.img_backbone = ResNet50(dtype=trunk_dtype)
-        self.img_neck = FPN((256, 512, 1024, 2048), C)
-        self.img_lss_neck = CustomFPN((1024, 2048), C)
+        self.img_backbone = build_trunk(img_backbone, trunk_dtype)
+        widths = self.img_backbone.out_channels
+        self.img_neck = FPN(widths, C)
+        self.img_lss_neck = CustomFPN(widths[2:], C)
         voxel = ((pc_range[3] - pc_range[0]) / bev_size[1],
                  (pc_range[4] - pc_range[1]) / bev_size[0],
                  pc_range[5] - pc_range[2])
@@ -264,7 +295,8 @@ CONFIG_FIELDS = ("num_cams", "num_frames", "embed_dims", "num_query",
                  "num_clusters", "num_levels", "num_groups", "num_classes",
                  "decoder", "image_hw", "pc_range", "depth_bins", "bev_size",
                  "query_denoising", "num_decoder_layers", "max_gt",
-                 "trunk_dtype", "head_dtype", "bn_frame0_only", "fused_gather")
+                 "trunk_dtype", "head_dtype", "bn_frame0_only", "fused_gather",
+                 "img_backbone")
 # the dtype names a config (or an --override) gives, as flax accepts them
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -296,8 +328,9 @@ def config_kwargs(cfg) -> dict:
 
     Every field of the JAX `RaCFormer` is taken but `train_mode` (the
     port's `model.train()`), dtypes as names (`DTYPES`) or torch dtypes,
-    the decoder's `gather_dtype` likewise. An unknown field, a dtype or a
-    `fused_gather` the port cannot read, or an unknown decoder
+    the decoder's `gather_dtype` likewise; and `img_backbone`, the image
+    trunk (`build_trunk`), which the JAX model lacks. An unknown field, a
+    dtype or a `fused_gather` the port cannot read, or an unknown decoder
     `remat_policy` (`nn.decoder.REMAT_POLICIES`) raises a ValueError that
     names it."""
     kwargs = dict(cfg["model"])

@@ -35,6 +35,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
+    out_channels = (256, 512, 1024, 2048)  # C2..C5
+
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  stage_blocks=(3, 4, 6, 3)):
         super().__init__()

@@ -63,7 +63,7 @@ def test_every_stream_cell_passes_its_tiny_run():
 def test_the_reference_and_the_harness_load_no_program_module():
     code = ("import sys; import h100_bench.harness, h100_bench.flops, "
             "h100_bench.reference.model, h100_bench.reference.train, "
-            "h100_bench.reference.streaming; "
+            "h100_bench.reference.streaming, h100_bench.reference.nn.vovnet; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'racformer_tpu', 'racformer_tpu_torch'}); "
             "print(bad)")
@@ -71,8 +71,9 @@ def test_the_reference_and_the_harness_load_no_program_module():
                        text=True, cwd=ROOT, timeout=300)
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == "[]"
-    imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|racformer_tpu)\b",
-                         re.MULTILINE)
+    imports = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|racformer_tpu|racformer_tpu_torch)\b",
+        re.MULTILINE)
     for path in (ROOT / "h100_bench" / "reference").rglob("*.py"):
         assert not imports.search(path.read_text()), path
 

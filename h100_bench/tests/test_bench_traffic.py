@@ -66,3 +66,22 @@ def test_train_pool_counts_and_determinism():
     counts = sorted(int(x) for bt in a for x in bt["gt_mask"].sum(1))
     assert counts == generator.spaced(1, G + 1, 4).tolist()
     assert a[0]["imgs"].shape[:2] == (mix["batch"], cfg["model"]["num_frames"])
+
+
+def test_train_boxes_clear_of_the_ego():
+    """Every GT box of a train pool lies clear of the mix's ego circle, and
+    a radius of 0 redraws nothing."""
+    cfg = tiny_cfg()
+    mix = dict(generator.load_mix("train"), pool_batches=2, radar_points=[16, 64])
+    assert mix["ego_radius_m"] > 0
+    for seed in (5, 1066068642):
+        for bt in generator.train_pool(cfg, mix, seed):
+            gt = bt["gt_bboxes"][bt["gt_mask"]]
+            reach = mix["ego_radius_m"] + 0.5 * np.hypot(gt[:, 3], gt[:, 4])
+            assert (np.hypot(gt[:, 0], gt[:, 1]) >= reach).all()
+    rng_a, rng_b = generator.rng_for(7, 0), generator.rng_for(7, 0)
+    gt = np.zeros((4, 9), np.float32)
+    gt[:, 3:5] = 2.0
+    generator.clear_of_ego(rng_a, gt, 0.0)
+    assert (gt[:, 0:2] == 0).all()
+    assert rng_a.random() == rng_b.random()

@@ -128,11 +128,26 @@ def tape(mix: dict, seed: int, stream: int, n: int) -> list:
     return out
 
 
+def clear_of_ego(rng, gt: np.ndarray, ego_radius: float) -> None:
+    """Redraws, in place, the centre (x, y) of each GT box [G, 9] whose
+    footprint's bounding circle (half its w-l diagonal) reaches into the
+    circle of `ego_radius` metres round the ego origin, until none does:
+    no box overlaps the ego vehicle, where the rig's cameras sit and the
+    polar and pinhole maps are singular. A radius of 0 keeps every box."""
+    while ego_radius > 0:
+        reach = ego_radius + 0.5 * np.hypot(gt[:, 3], gt[:, 4])
+        bad = np.hypot(gt[:, 0], gt[:, 1]) < reach
+        if not bad.any():
+            break
+        gt[bad, 0:2] = rng.uniform(-45, 45, size=(int(bad.sum()), 2))
+
+
 def train_pool(cfg: dict, mix: dict, seed: int) -> list:
     """The mix's pool of train batches: each B samples of T frames, as the
     port's `SyntheticDataset` lays them out (the radar maps in column form
     [B, T, N, W], to be smeared down the columns on the device), with GT box
-    counts evenly spaced over the mix's range and permuted by the seed."""
+    counts evenly spaced over the mix's range and permuted by the seed, each
+    box clear of the mix's `ego_radius_m` (`clear_of_ego`)."""
     rng = rng_for(seed, 3)
     m = cfg["model"]
     N = len(cfg["rig"]["camera_yaw_deg"])
@@ -154,6 +169,7 @@ def train_pool(cfg: dict, mix: dict, seed: int) -> list:
             gt[:g, 2] = rng.uniform(-2, 1, size=(g,))
             gt[:g, 3:6] = rng.uniform(0.5, 6.0, size=(g, 3))
             gt[:g, 6] = rng.uniform(-np.pi, np.pi, size=(g,))
+            clear_of_ego(rng, gt[:g], float(mix.get("ego_radius_m", 0.0)))
             labels = np.zeros((G,), np.int32)
             labels[:g] = rng.integers(0, len(cfg["class_names"]), size=(g,))
             depth, rcs = column_maps(rng, (T, N, W), mix["radar_column_share"])
